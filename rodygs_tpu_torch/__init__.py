@@ -1,0 +1,13 @@
+"""rodygs_tpu_torch — the PyTorch/CUDA port of `rodygs_tpu`.
+
+Mirrors the JAX package's module layout (`rodygs_tpu/render/compact.py` <->
+`rodygs_tpu_torch/render/compact.py`, ...). The four Pallas kernels of the
+rasterizer are hand-written CUDA C++ kernels for Hopper (`csrc/`), built
+from source at first use (`kernels.py`); every other op is plain PyTorch.
+
+The package imports torch, numpy and the standard library only — never
+`jax` and nothing of `rodygs_tpu`. Entry points run on `cuda` unless the
+caller passes `device="cpu"` (utils/platform.resolve_device).
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,151 @@
+"""Build, load and launch the hand-written CUDA kernels of `csrc/`.
+
+Each `csrc/<name>.cu` compiles with `nvcc` for `sm_90a` into its own shared
+library with a plain C interface, loaded through `ctypes` (pointers from
+`Tensor.data_ptr()`, the stream from `torch.cuda.current_stream()`). The
+libraries are built from the sources at first use, all `nvcc` processes
+started together, into `rodygs_tpu_torch/_build/` (listed in .gitignore),
+keyed by a hash of the source and flags so an edited source rebuilds.
+
+Nothing here runs at import: the CPU tests import every module, so an
+import must need neither `nvcc` nor a card.
+
+`LAUNCHES[name]` counts launches of each kernel; the wrappers in
+render/compact.py and render/tile_kernel.py add one where they launch,
+and nowhere else. `reset_launches()` zeroes them.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+# FMA contraction stays on; the few operations that decide a pixel's stop
+# are written with explicitly rounded intrinsics instead (csrc/common.cuh).
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# C entry point and its argument types, per kernel source. Every entry
+# returns cudaGetLastError() after its launch.
+_SIGNATURES = {
+    "expand": ("rodygs_expand",
+               # table, rows, nw, bases, num_chunks, f_kept, tiles_x, db,
+               # rows_mode, key, rec, stream
+               (_P, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P)),
+    "tile_fwd": ("rodygs_tile_fwd",
+                 # records, P, starts, counts, offset, T, tiles_x, out, stream
+                 (_P, _I, _P, _P, _P, _I, _I, _P, _P)),
+    "tile_bwd": ("rodygs_tile_bwd",
+                 # records, P, starts, counts, offset, T, tiles_x, out, gout,
+                 # d_records, stream
+                 (_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P)),
+    "segsum": ("rodygs_segsum",
+               # d, n_rows, C, off_row, nw, f_kept, out, stream
+               (_P, _I, _I, _P, _I, _P, _P, _P)),
+}
+KERNELS = tuple(_SIGNATURES)
+LAUNCHES = {name: 0 for name in KERNELS}
+_libs: dict[str, ctypes.CDLL] = {}
+BUILD_LOG: dict[str, str] = {}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    cand = [os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"]
+    for root in cand:
+        if root and os.path.exists(os.path.join(root, "bin", "nvcc")):
+            return os.path.join(root, "bin", "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    src = (_CSRC / f"{name}.cu").read_bytes()
+    common = (_CSRC / "common.cuh").read_bytes()
+    digest = hashlib.sha256(src + common + " ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+
+
+def build_all() -> float:
+    """Compile every missing kernel library, one nvcc per source, all in
+    parallel. Returns the wall seconds spent; raises on any failure."""
+    t0 = time.perf_counter()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in KERNELS:
+        out = _lib_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        BUILD_LOG[name] = log
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+    if failed:
+        raise RuntimeError("nvcc failed\n" + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def _lib(name: str):
+    fn = _libs.get(name)
+    if fn is None:
+        path = _lib_path(name)
+        if not path.exists():
+            build_all()
+        lib = ctypes.CDLL(str(path))
+        sym, argtypes = _SIGNATURES[name]
+        fn = getattr(lib, sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _libs[name] = fn
+    return fn
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel `name` on the current stream with C arguments `args`
+    (tensors are passed by data pointer, ints as int). Raises if the launch
+    reports an error; counts the launch."""
+    fn = _lib(name)
+    c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    stream = torch.cuda.current_stream().cuda_stream
+    err = fn(*c_args, stream)
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
+    LAUNCHES[name] += 1
+
+
+def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:
+    """Validate a tensor handed to a kernel: CUDA, dtype, rank, contiguity."""
+    if not t.is_cuda:
+        raise ValueError(f"{name}: expected a CUDA tensor")
+    if t.dtype != dtype:
+        raise ValueError(f"{name}: expected {dtype}, got {t.dtype}")
+    if t.ndim != ndim:
+        raise ValueError(f"{name}: expected rank {ndim}, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor")

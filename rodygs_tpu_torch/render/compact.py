@@ -1,0 +1,602 @@
+"""Exact-compaction fragment binning, the expand and segsum kernels, and the
+differentiable `composite_compact`. Port of `rodygs_tpu/render/compact.py`.
+
+The index structure is the JAX package's: fragments are enumerated
+gaussian-major (slot m ascending, k = 0..cnt(m)-1 inside each gaussian) and
+every capacity slot emits at least one fragment, so the fragment->gaussian
+map m(i) is monotone with steps <= 1. `build_binning` (plain torch) derives
+per-tile counts and ranges, per-512-slot window bases and the packed aux
+rows from that invariant. The forward then runs
+
+    expand (CUDA kernel) -> stable sort of the int32 key -> tile forward
+
+and the backward
+
+    tile backward -> inverse-permutation unsort -> segsum (CUDA kernel).
+
+Each kernel wrapper launches its CUDA kernel for CUDA tensors and uses the
+plain PyTorch version beside it only for CPU tensors; there is no fallback.
+
+Not ported in this module yet: sort bands (`bands > 1`), the bf16 payload
+and the `fwd_records` / `bwd_unsort` variants.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from .. import kernels
+from .binning import TILE
+from .preprocess import Splats2D
+
+FCHUNK = 512              # fragments per expand chunk (one bases[] entry)
+WIN = FCHUNK + 128        # gaussian window per chunk (monotone map bound)
+NUM_REC_ROWS = 13         # mx,my,ca,cb,cc,op,r,g,b,depth,nx,ny,nz
+ROW_BASE_TILE = NUM_REC_ROWS
+ROW_DBITS = NUM_REC_ROWS + 1
+ROW_OFF = NUM_REC_ROWS + 2
+ROW_SPANW = NUM_REC_ROWS + 3
+ROW_SPAN_MAX = 8
+ROW_RMODE = NUM_REC_ROWS + 4
+ROW_ROWOFF0 = NUM_REC_ROWS + 5
+ROW_TXLO0 = NUM_REC_ROWS + 5 + ROW_SPAN_MAX
+N_CORE_ROWS = 10          # record rows [0:10): geometry + rgb + depth
+NUM_FIELDS = 16           # tile-kernel record rows
+
+
+def table_rows_for(aux_height: int) -> int:
+    """Table height for an aux-row block height (8-aligned, as in JAX)."""
+    return -(-(NUM_REC_ROWS + aux_height) // 8) * 8
+
+
+NUM_TABLE_ROWS = table_rows_for(4)
+NUM_TABLE_ROWS_RMODE = table_rows_for(5 + 2 * ROW_SPAN_MAX)
+_OFF_PAD = 2.0e7          # > any valid off (C < 2^24)
+INT32_MAX = 2**31 - 1
+
+FRAGMENT_PROFILES = {"lean": 6, "wide": 12, "huge": 24}
+PROFILE_LADDER = ("lean", "wide", "huge")
+MAX_FRAGMENT_CAPACITY = (1 << 24) - FCHUNK
+CAP_GRID_STEP = 1.25
+_BAND_MIN_EXTENT = 1_200_000
+BAND_KEEP_MARGIN = 1.03
+BAND_UPGRADE_MARGIN = 1.10
+
+
+# --------------------------------------------------------------------------
+# capacity / profile helpers (host-side Python, identical logic to JAX)
+# --------------------------------------------------------------------------
+
+
+def split_profile(profile):
+    """(capacity_profile, bands) from a fragment-profile knob."""
+    if isinstance(profile, (tuple, list)):
+        return profile[0], int(profile[1])
+    return profile, 1
+
+
+def join_profile(profile, bands: int):
+    """Inverse of split_profile."""
+    return profile if bands <= 1 else (profile, int(bands))
+
+
+def bands_viable(n: int, capacity: int, demand: int, bands: int,
+                 margin: float = BAND_KEEP_MARGIN) -> bool:
+    if bands <= 1:
+        return True
+    return (capacity // bands >= _BAND_MIN_EXTENT
+            and bands * n + int(margin * demand) <= capacity)
+
+
+def bands_decision(n: int, capacity: int, demand: int,
+                   margin: float = BAND_UPGRADE_MARGIN) -> int:
+    best = 1
+    for b in (2, 3, 4):
+        if bands_viable(n, capacity, demand, b, margin):
+            best = b
+    return best
+
+
+def profile_for_demand(n: int, demand: int, current: str | int = "lean",
+                       bands: int = 1):
+    """Smallest ladder profile covering 1.15x demand (plus the banded
+    structural floor), or an explicit capacity on the CAP_GRID_STEP grid
+    beyond the ladder; None when no growth is possible."""
+    cur_cap = fragment_capacity(n, current)
+    want = (bands - 1) * n + int(demand * 1.15)
+    for p in PROFILE_LADDER:
+        cap = fragment_capacity(n, p)
+        if cap >= want:
+            return p if cap > cur_cap else None
+    cap = max(fragment_capacity(n, PROFILE_LADDER[-1]), cur_cap)
+    while cap < want and cap < MAX_FRAGMENT_CAPACITY:
+        cap = min(int(cap * CAP_GRID_STEP), MAX_FRAGMENT_CAPACITY)
+    cap = min(-(-cap // FCHUNK) * FCHUNK, MAX_FRAGMENT_CAPACITY)
+    return cap if cap > cur_cap else None
+
+
+def fit_capacity(n: int, demand: int, bands: int = 1) -> int:
+    """Smallest grid capacity covering the structural floor (bands * n)
+    plus 1.25x the observed demand."""
+    want = max(bands * n + int(demand * 1.25), FCHUNK)
+    cap = FCHUNK
+    while cap < want:
+        cap = -(-int(cap * CAP_GRID_STEP) // FCHUNK) * FCHUNK
+    return min(cap, MAX_FRAGMENT_CAPACITY)
+
+
+def escalation_poll_due(iteration: int) -> bool:
+    """Poll every 5 iterations early, every 25 in steady state."""
+    return iteration % (5 if iteration <= 100 else 25) == 0
+
+
+def fragment_capacity(n: int, profile) -> int:
+    """Capacity for a ladder name, an explicit integer, or a (profile,
+    bands) tuple; FCHUNK-rounded and clamped to the f32-exact maximum."""
+    profile, _ = split_profile(profile)
+    if isinstance(profile, str):
+        c = FRAGMENT_PROFILES[profile] * n
+        c = -(-c // FCHUNK) * FCHUNK
+        if c >= 1 << 24:
+            raise ValueError("fragment capacity must stay below 2^24 "
+                             "(f32-exact fragment indices)")
+        return c
+    c = -(-int(profile) // FCHUNK) * FCHUNK
+    return max(FCHUNK, min(c, MAX_FRAGMENT_CAPACITY))
+
+
+def padded_width(n: int) -> int:
+    """Table width: n padded so any 128-aligned WIN-column window fits."""
+    return -(-n // 128) * 128 + WIN
+
+
+def tile_bits(tiles_x: int, tiles_y: int) -> int:
+    return max(1, math.ceil(math.log2(tiles_x * tiles_y + 1)))
+
+
+def depth_key_bits(tiles_x: int, tiles_y: int) -> int:
+    return min(32 - tile_bits(tiles_x, tiles_y), 23)
+
+
+def quantize_depth_bits(depth: torch.Tensor, db: int) -> torch.Tensor:
+    """Top `db` bits of the f32 pattern (logical shift; int64 result)."""
+    bits = depth.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return bits >> (31 - db)
+
+
+# --------------------------------------------------------------------------
+# rectangles and row spans
+# --------------------------------------------------------------------------
+
+
+def _clip_i32(x: torch.Tensor, hi: int) -> torch.Tensor:
+    return torch.clamp(x, 0, hi).to(torch.int32)
+
+
+def tile_rect(mean2d, radius, tiles_x: int, tiles_y: int):
+    """Tile rect per gaussian with C-truncation semantics (exclusive max)."""
+    r = radius.to(torch.float32)
+    px, py = mean2d[0], mean2d[1]
+    xmin = _clip_i32(torch.trunc((px - r) / TILE), tiles_x)
+    ymin = _clip_i32(torch.trunc((py - r) / TILE), tiles_y)
+    xmax = _clip_i32(torch.trunc((px + r + TILE - 1) / TILE), tiles_x)
+    ymax = _clip_i32(torch.trunc((py + r + TILE - 1) / TILE), tiles_y)
+    return xmin, ymin, xmax, ymax
+
+
+def tight_tile_rect(mean2d, ext, tiles_x: int, tiles_y: int):
+    """Tile rect of the alpha>=1/255 ellipse AABB (ext: [2, N] half-extents)."""
+    px, py = mean2d[0], mean2d[1]
+    ex, ey = ext[0], ext[1]
+    xmin = _clip_i32(torch.floor(torch.ceil(px - ex) / TILE), tiles_x)
+    ymin = _clip_i32(torch.floor(torch.ceil(py - ey) / TILE), tiles_y)
+    xmax = _clip_i32(torch.floor(torch.floor(px + ex) / TILE) + 1, tiles_x)
+    ymax = _clip_i32(torch.floor(torch.floor(py + ey) / TILE) + 1, tiles_y)
+    return xmin, ymin, xmax, ymax
+
+
+def ellipse_row_spans(mean2d, conic, t_cut, xmin, ymin, xmax, ymax,
+                      tiles_x: int):
+    """Exact per-tile-row x tile ranges of the alpha>=1/255 ellipse for the
+    first ROW_SPAN_MAX rows of each gaussian's rect (see the JAX docstring
+    for the closed form). Returns (txlo, span): [R, N] int32."""
+    px, py = mean2d[0], mean2d[1]
+    A, B, C = conic[0], conic[1], conic[2]
+    det = torch.clamp(A * C - B * B, min=1e-30)
+    dy_ext = torch.sqrt(torch.clamp(t_cut * A / det, min=0.0)) * 1.00001 + 1e-3
+    dy_crit = B * torch.sqrt(torch.clamp(t_cut / (det * C), min=0.0))
+    inv_a = 1.0 / A
+
+    def upper(dy):
+        rad = torch.clamp(t_cut * A - det * dy * dy, min=0.0)
+        return (-B * dy + torch.sqrt(rad)) * inv_a
+
+    def lower(dy):
+        rad = torch.clamp(t_cut * A - det * dy * dy, min=0.0)
+        return (-B * dy - torch.sqrt(rad)) * inv_a
+
+    def clip(x, lo, hi):
+        return torch.minimum(torch.maximum(x, lo), hi)
+
+    txlos, spans = [], []
+    for j in range(ROW_SPAN_MAX):
+        row_lo = (ymin + j).to(torch.float32) * TILE - py
+        row_hi = row_lo + (TILE - 1)
+        bl = clip(row_lo, -dy_ext, dy_ext)
+        bh = clip(row_hi, -dy_ext, dy_ext)
+        nonempty = ((j < (ymax - ymin)) & (row_lo <= dy_ext)
+                    & (row_hi >= -dy_ext))
+        xhi = torch.maximum(torch.maximum(upper(bl), upper(bh)),
+                            upper(clip(-dy_crit, bl, bh)))
+        xlo = torch.minimum(torch.minimum(lower(bl), lower(bh)),
+                            lower(clip(dy_crit, bl, bh)))
+        xhi = xhi + (0.01 + 1e-5 * torch.abs(xhi))
+        xlo = xlo - (0.01 + 1e-5 * torch.abs(xlo))
+        tx_lo = torch.floor(torch.ceil(px + xlo) / TILE)
+        tx_hi = torch.floor(torch.floor(px + xhi) / TILE) + 1.0
+        tx_lo = torch.maximum(_clip_i32(tx_lo, tiles_x), xmin)
+        tx_hi = torch.minimum(_clip_i32(tx_hi, tiles_x), xmax)
+        span = torch.where(nonempty, torch.clamp(tx_hi - tx_lo, min=0), 0)
+        txlos.append(torch.where(span > 0, tx_lo, 0))
+        spans.append(span)
+    return (torch.stack(txlos).to(torch.int32),
+            torch.stack(spans).to(torch.int32))
+
+
+# --------------------------------------------------------------------------
+# build_binning (bands = 1)
+# --------------------------------------------------------------------------
+
+
+class CompactBinning(NamedTuple):
+    """Index structure for one render (all non-differentiable)."""
+
+    aux_rows: torch.Tensor     # [4 (or 21, rows mode), Nw] f32
+    bases: torch.Tensor        # [C/FCHUNK] i32 128-aligned window starts
+    tile_starts: torch.Tensor  # [T] i32
+    tile_counts: torch.Tensor  # [T] i32
+    f_kept: torch.Tensor       # [] i32 fragments actually emitted
+    num_fragments: torch.Tensor  # [] i32 true demand (may exceed capacity)
+    dropped: torch.Tensor      # [] i32 fragments dropped by the clamp
+    overflow: torch.Tensor     # [] bool
+
+
+def build_table(rec13: torch.Tensor, aux_rows: torch.Tensor) -> torch.Tensor:
+    """Pack differentiable record rows [13, Nw] + detached aux rows into the
+    8-aligned expand table (zero pad rows)."""
+    nw = aux_rows.shape[1]
+    rows = table_rows_for(aux_rows.shape[0])
+    pad = torch.zeros((rows - NUM_REC_ROWS - aux_rows.shape[0], nw),
+                      dtype=torch.float32, device=aux_rows.device)
+    return torch.cat([rec13, aux_rows.detach(), pad], dim=0)
+
+
+def _rect_corners(sel, y0, y1, x0, x1, ys, xs):
+    """Signed corner outer product [Ty+1, Tx+1] of the selected rects."""
+    s = sel[:, None]
+    a = ((s & (y0[:, None] == ys[None, :])).float()
+         - (s & (y1[:, None] == ys[None, :])).float())
+    b = ((s & (x0[:, None] == xs[None, :])).float()
+         - (s & (x1[:, None] == xs[None, :])).float())
+    return a.T @ b
+
+
+@torch.no_grad()
+def build_binning(
+    splats: Splats2D,
+    tiles_x: int,
+    tiles_y: int,
+    capacity: int,
+    tight: bool | str = False,
+    bands: int = 1,
+) -> CompactBinning:
+    """Compact fragment index structure (no gradients).
+
+    tight=True intersects each rect with the alpha-cut ellipse AABB;
+    tight="rows" also enumerates exact per-tile-row spans for gaussians at
+    most ROW_SPAN_MAX rows tall. Per-tile counts are exact integers from a
+    signed rect-corner product and a 2-D prefix sum, as in the JAX package.
+    """
+    if bands > 1:
+        raise NotImplementedError(
+            "sort bands (bands > 1) are not ported yet; ROADMAP queue 1 "
+            "item 12")
+    rows_mode = tight == "rows"
+    mean2d = splats.mean2d.detach()
+    depth = splats.depth.detach()
+    dev = mean2d.device
+    n = mean2d.shape[1]
+    nw = padded_width(n)
+    num_tiles = tiles_x * tiles_y
+    db = depth_key_bits(tiles_x, tiles_y)
+
+    xmin, ymin, xmax, ymax = tile_rect(mean2d, splats.radius, tiles_x, tiles_y)
+    if tight:
+        txmin, tymin, txmax, tymax = tight_tile_rect(
+            mean2d, splats.ext.detach(), tiles_x, tiles_y)
+        xmin = torch.maximum(xmin, txmin)
+        ymin = torch.maximum(ymin, tymin)
+        xmax = torch.minimum(xmax, txmax)
+        ymax = torch.minimum(ymax, tymax)
+    span_w = xmax - xmin
+    span_h = ymax - ymin
+    vis = splats.visible & (span_w > 0) & (span_h > 0)
+
+    if rows_mode:
+        opac = splats.opacity.detach()
+        t_cut = torch.clamp(
+            2.0 * torch.log(255.0 * torch.clamp(opac, min=1e-12)), min=0.0)
+        row_txlo, row_span = ellipse_row_spans(
+            mean2d, splats.conic.detach(), t_cut, xmin, ymin, xmax, ymax,
+            tiles_x)
+        rmode = vis & (span_h <= ROW_SPAN_MAX)
+        rect_enum = vis & ~rmode
+    else:
+        rmode = torch.zeros((n,), dtype=torch.bool, device=dev)
+        rect_enum = vis
+
+    ys = torch.arange(tiles_y + 1, dtype=torch.int32, device=dev)
+    xs = torch.arange(tiles_x + 1, dtype=torch.int32, device=dev)
+    dbits = torch.where(vis, quantize_depth_bits(depth, db), 0).to(torch.float32)
+
+    zero = torch.zeros_like(span_w)
+    if rows_mode:
+        cnt_true = torch.where(rmode, row_span.sum(dim=0, dtype=torch.int32),
+                               torch.where(rect_enum, span_w * span_h, zero))
+    else:
+        cnt_true = torch.where(rect_enum, span_w * span_h, zero)
+    cnt = torch.clamp(cnt_true, min=1).to(torch.int64)
+    off_next = torch.cumsum(cnt, dim=0)
+    off = off_next - cnt
+    f_all = off_next[-1]
+
+    kept = off_next <= capacity
+    f_kept = torch.sum(torch.where(kept, cnt, 0)).to(torch.int32)
+    dropped = torch.sum(torch.where(kept, 0, cnt_true.to(torch.int64)))
+    overflow = f_all > capacity
+    f_real = torch.sum(cnt_true.to(torch.int64))
+
+    counted = rect_enum & kept
+    corners = _rect_corners(counted, ymin, ymax, xmin, xmax, ys, xs)
+    if rows_mode:
+        row_kept = rmode & kept
+        for j in range(ROW_SPAN_MAX):
+            sel = row_kept & (row_span[j] > 0)
+            corners = corners + _rect_corners(
+                sel, ymin + j, ymin + j + 1, row_txlo[j],
+                row_txlo[j] + row_span[j], ys, xs)
+    counts2d = torch.cumsum(torch.cumsum(corners, dim=0), dim=1)
+    tile_counts = torch.round(
+        counts2d[:tiles_y, :tiles_x].reshape(-1)).to(torch.int32)
+    tile_starts = (torch.cumsum(tile_counts, dim=0, dtype=torch.int32)
+                   - tile_counts)
+
+    chunk_q = torch.arange(capacity // FCHUNK, dtype=torch.int64,
+                           device=dev) * FCHUNK
+    first_g = torch.searchsorted(off_next, chunk_q, right=True)
+    bases = torch.clamp((first_g // 128) * 128, 0, nw - WIN).to(torch.int32)
+
+    rvalid = rmode & (cnt_true > 0)
+    base_tile = torch.where(
+        rvalid, (ymin * tiles_x).to(torch.float32),
+        torch.where(vis & (span_h > 0),
+                    (ymin * tiles_x + xmin).to(torch.float32),
+                    float(num_tiles)))
+    parts = [
+        base_tile[None],
+        dbits[None],
+        off.to(torch.float32)[None],
+        torch.where(counted & (span_h > 0), span_w, 0).to(torch.float32)[None],
+    ]
+    if rows_mode:
+        parts.append(rvalid.to(torch.float32)[None])
+        row_prefix = torch.cumsum(row_span, dim=0) - row_span
+        parts.append(row_prefix.to(torch.float32))
+        parts.append(row_txlo.to(torch.float32))
+    aux = torch.cat(parts, dim=0)
+    aux_rows = torch.zeros((aux.shape[0], nw), dtype=torch.float32, device=dev)
+    aux_rows[:, :n] = aux
+    # pad columns: off stays monotone and huge so no window search finds them
+    aux_rows[2, n:] = torch.arange(nw - n, dtype=torch.float32,
+                                   device=dev) + _OFF_PAD
+    return CompactBinning(
+        aux_rows=aux_rows, bases=bases, tile_starts=tile_starts,
+        tile_counts=tile_counts, f_kept=f_kept,
+        num_fragments=f_real.to(torch.int32),
+        dropped=dropped.to(torch.int32), overflow=overflow)
+
+
+# --------------------------------------------------------------------------
+# expand: table -> (sort key, presort record rows)
+# --------------------------------------------------------------------------
+
+
+def expand_fragments_plain(table: torch.Tensor, bases: torch.Tensor,
+                           f_kept: torch.Tensor, tiles_x: int, db: int):
+    """Plain PyTorch version of the expand kernel (same function)."""
+    dev = table.device
+    capacity = bases.shape[0] * FCHUNK
+    i = torch.arange(capacity, dtype=torch.int64, device=dev)
+    base = bases.to(torch.int64)[i // FCHUNK]
+    off = table[ROW_OFF].contiguous()
+    # the off row increases over the whole table, so the last window column
+    # with off <= i is the global search result clamped into the window
+    w = torch.searchsorted(off, i.to(torch.float32), right=True) - 1 - base
+    none = w < 0
+    g = base + torch.clamp(w, 0, WIN - 1)
+    cols = table[:, g]                                    # [R, C]
+
+    k = i - cols[ROW_OFF].to(torch.int64)
+    span_w = cols[ROW_SPANW].to(torch.int64)
+    ky = torch.div(k, torch.clamp(span_w, min=1), rounding_mode="floor")
+    kx = k - ky * torch.clamp(span_w, min=1)
+    base_tile = cols[ROW_BASE_TILE].to(torch.int64)
+    tile = base_tile + ky * tiles_x + kx
+    valid = span_w > 0
+    if table.shape[0] >= NUM_TABLE_ROWS_RMODE:
+        use_rows = cols[ROW_RMODE] > 0.5
+        rowoff = cols[ROW_ROWOFF0:ROW_ROWOFF0 + ROW_SPAN_MAX].to(torch.int64)
+        txlo = cols[ROW_TXLO0:ROW_TXLO0 + ROW_SPAN_MAX].to(torch.int64)
+        r = (rowoff <= k[None]).sum(dim=0) - 1
+        rc = torch.clamp(r, min=0)[None]
+        has = r >= 0
+        rowoff_r = torch.where(has, rowoff.gather(0, rc)[0], 0)
+        txlo_r = torch.where(has, txlo.gather(0, rc)[0], 0)
+        tile_rows = base_tile + r * tiles_x + txlo_r + (k - rowoff_r)
+        tile = torch.where(use_rows, tile_rows, tile)
+        valid = valid | use_rows
+    valid = valid & (i < f_kept.to(torch.int64)) & ~none
+    dbits = cols[ROW_DBITS].to(torch.int64)
+    packed = ((((tile & 0xFFFFFFFF) << db) & 0xFFFFFFFF) | dbits) ^ 0x80000000
+    packed = torch.where(packed >= 2**31, packed - 2**32, packed)
+    key = torch.where(valid, packed, INT32_MAX).to(torch.int32)
+    rec = torch.where(none[None], 0.0, cols[:NUM_REC_ROWS])
+    return key, rec
+
+
+def expand_fragments(table: torch.Tensor, bases: torch.Tensor,
+                     f_kept: torch.Tensor, tiles_x: int, db: int):
+    """table [24 or 40, Nw] f32, bases [C/512] i32, f_kept [] i32 ->
+    (key [C] i32 in biased-u32 order, rec [13, C] presort records).
+    Launches the CUDA expand kernel for CUDA tensors; the plain version
+    serves CPU tensors only."""
+    if not table.is_cuda:
+        return expand_fragments_plain(table, bases, f_kept, tiles_x, db)
+    table = table.detach().contiguous()
+    kernels.check_cuda(table, "expand table", torch.float32, 2)
+    kernels.check_cuda(bases, "expand bases", torch.int32, 1)
+    f_kept = f_kept.reshape(1).to(torch.int32).contiguous()
+    capacity = bases.shape[0] * FCHUNK
+    key = torch.empty((capacity,), dtype=torch.int32, device=table.device)
+    rec = torch.empty((NUM_REC_ROWS, capacity), dtype=torch.float32,
+                      device=table.device)
+    kernels.launch("expand", table, table.shape[0], table.shape[1], bases,
+                   bases.shape[0], f_kept, tiles_x, db,
+                   int(table.shape[0] >= NUM_TABLE_ROWS_RMODE), key, rec)
+    return key, rec
+
+
+# --------------------------------------------------------------------------
+# segsum: presort-order gradient rows -> per-gaussian rows
+# --------------------------------------------------------------------------
+
+
+def segment_sum_rows_plain(d_presort: torch.Tensor, table: torch.Tensor,
+                           f_kept: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of the segsum kernel: out[r, g] sums
+    d_presort[r, i] over gaussian g's slot range [off[g], off[g+1])
+    clamped to [0, f_kept). Differences of a float64 running sum."""
+    n_rows, c = d_presort.shape
+    end = torch.clamp(f_kept.to(torch.int64), max=c)
+    off = table[ROW_OFF].detach().to(torch.int64)
+    lo = torch.minimum(off, end)
+    hi = torch.minimum(torch.cat([off[1:], end.reshape(1)]), end)
+    cs = torch.zeros((n_rows, c + 1), dtype=torch.float64,
+                     device=d_presort.device)
+    cs[:, 1:] = torch.cumsum(d_presort.to(torch.float64), dim=1)
+    return (cs[:, hi] - cs[:, lo]).to(torch.float32)
+
+
+def segment_sum_rows(d_presort: torch.Tensor, table: torch.Tensor,
+                     f_kept: torch.Tensor) -> torch.Tensor:
+    """d_presort [n_rows, C] f32 (presort order); table: the expand table
+    (only its offsets row is read) -> [n_rows, Nw]. Launches the CUDA
+    segsum kernel for CUDA tensors; the plain version serves CPU tensors
+    only. Slots at or past f_kept must hold zeros (they carry no fragment)."""
+    if not d_presort.is_cuda:
+        return segment_sum_rows_plain(d_presort, table, f_kept)
+    d_presort = d_presort.contiguous()
+    kernels.check_cuda(d_presort, "segsum rows", torch.float32, 2)
+    off_row = table[ROW_OFF].detach().contiguous()
+    f_kept = f_kept.reshape(1).to(torch.int32).contiguous()
+    n_rows, c = d_presort.shape
+    nw = off_row.shape[0]
+    out = torch.empty((n_rows, nw), dtype=torch.float32,
+                      device=d_presort.device)
+    kernels.launch("segsum", d_presort, n_rows, c, off_row, nw, f_kept, out)
+    return out
+
+
+# --------------------------------------------------------------------------
+# composite_compact: expand -> sort -> tile forward; backward tile backward
+# -> unsort -> segsum
+# --------------------------------------------------------------------------
+
+
+def sort_fragments(key: torch.Tensor, rec: torch.Tensor):
+    """Stable sort by the int32 key; the record rows are gathered by the
+    returned permutation (bit-identical to carrying them through the sort).
+    Returns (presort index [C] i64, sorted rows)."""
+    _, perm = torch.sort(key, stable=True)
+    return perm, rec[:, perm]
+
+
+def stack_records(rows: torch.Tensor) -> torch.Tensor:
+    """Sorted rows [13 or 10, C] -> the [16, C] tile-kernel record layout
+    (normal rows zero when skipped; row 13 the constant alpha feature)."""
+    c = rows.shape[1]
+    parts = [rows]
+    if rows.shape[0] == N_CORE_ROWS:
+        parts.append(rows.new_zeros((NUM_REC_ROWS - N_CORE_ROWS, c)))
+    parts += [rows.new_ones((1, c)), rows.new_zeros((2, c))]
+    return torch.cat(parts, dim=0).contiguous()
+
+
+class _CompositeCompact(torch.autograd.Function):
+
+    @staticmethod
+    def forward(ctx, table, bases, f_kept, tile_starts, tile_counts,
+                tile_id_offset, tiles_x, tiles_y, include_normal):
+        from .tile_kernel import rasterize_fwd_impl
+
+        db = depth_key_bits(tiles_x, tiles_y)
+        key, rec = expand_fragments(table, bases, f_kept, tiles_x, db)
+        if not include_normal:
+            rec = rec[:N_CORE_ROWS]
+        perm, rows = sort_fragments(key, rec)
+        records = stack_records(rows)
+        out = rasterize_fwd_impl(records, tile_starts, tile_counts,
+                                 tile_id_offset, tiles_x)
+        ctx.save_for_backward(records, perm, tile_starts, tile_counts,
+                              tile_id_offset, table.detach(), f_kept, out)
+        ctx.tiles_x = tiles_x
+        ctx.n_rows = rec.shape[0]
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        from .tile_kernel import rasterize_bwd_impl
+
+        (records, perm, tile_starts, tile_counts, tile_id_offset, table,
+         f_kept, out) = ctx.saved_tensors
+        d_records = rasterize_bwd_impl(records, tile_starts, tile_counts,
+                                       tile_id_offset, out,
+                                       gout.contiguous(), ctx.tiles_x)
+        n_rows = ctx.n_rows
+        # exact inverse-permutation scatter back to presort order
+        d_presort = torch.empty((n_rows, perm.shape[0]), dtype=torch.float32,
+                                device=records.device)
+        d_presort[:, perm] = d_records[:n_rows]
+        d_rows = segment_sum_rows(d_presort, table, f_kept)
+        d_table = torch.cat(
+            [d_rows, d_rows.new_zeros((table.shape[0] - n_rows,
+                                       d_rows.shape[1]))], dim=0)
+        return d_table, None, None, None, None, None, None, None, None
+
+
+def composite_compact(table, bases, f_kept, tile_starts, tile_counts,
+                      tile_id_offset, tiles_x: int, tiles_y: int,
+                      include_normal: bool = True) -> torch.Tensor:
+    """Differentiable fragment compositing over the compact index structure.
+
+    table [24 or 40, Nw]: rows 0..12 the differentiable record rows, the
+    rest detached aux rows (build_table). Returns [T, 8, 256] tile planes.
+    include_normal=False keeps the 3 normal rows out of the sort and the
+    unsort (composited normal planes are 0, their table gradient rows 0).
+    """
+    return _CompositeCompact.apply(table, bases, f_kept, tile_starts,
+                                   tile_counts, tile_id_offset, tiles_x,
+                                   tiles_y, include_normal)

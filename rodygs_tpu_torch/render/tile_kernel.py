@@ -1,0 +1,207 @@
+"""Tile compositing, forward and analytic backward. Port of
+`rodygs_tpu/render/tile_kernel.py` (`rasterize_fwd_impl`,
+`rasterize_bwd_impl`, `tiles_to_image`).
+
+Record rows (f32, field-major [16, P]):
+  0:mx 1:my 2:conic_a 3:conic_b 4:conic_c 5:opacity
+  6:r 7:g 8:b 9:depth 10:nx 11:ny 12:nz 13:const_one 14:pad 15:pad
+Rows 6..13 are the composited features; output channels are
+[r, g, b, depth, nx, ny, nz, alpha] as [T, 8, 256] tile planes.
+
+Blending: alpha = min(0.99, o*exp(-sigma)); fragments with sigma<0 or
+alpha<1/255 are skipped; a pixel stops at the first fragment that would take
+its transmittance below 1e-4 (compared in log space, as in the JAX kernel);
+the clamp has a zero subgradient.
+
+The plain versions below serve CPU tensors, and hold the kernels to account
+on the card. They take the kernels' arithmetic in the kernels' order: the
+log transmittance and the prefix sums are carried lane by lane (not by a
+parallel scan), the weight is alpha * exp(log T before the fragment), and
+the kernels take the conic form, alpha and the log transmittance with
+explicitly rounded operations (no FMA contraction), so a pixel's stop
+decision and every alpha threshold are taken on the same float values.
+
+The wrappers launch the CUDA kernels (csrc/tile_fwd.cu, csrc/tile_bwd.cu)
+for CUDA tensors; the plain versions serve CPU tensors only. They walk each
+tile's range in 128-fragment chunks, vectorized over all tiles at once.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import kernels
+from .binning import CHUNK, TILE
+
+NUM_CHANNELS = 8
+NUM_FIELDS = 16
+PIX = TILE * TILE
+LOG_T_EPS = math.log(1e-4)
+ALPHA_MAX = 0.99
+ALPHA_EPS = 1.0 / 255.0
+_FEAT0, _FEAT1 = 6, 14
+
+
+def _pixel_coords(tile_id_offset: torch.Tensor, num_tiles: int, tiles_x: int):
+    """[T, PIX] pixel coordinates; pixel p = py_local*16 + px_local."""
+    dev = tile_id_offset.device
+    tid = tile_id_offset.reshape(1).to(torch.int64) + torch.arange(
+        num_tiles, device=dev)
+    p = torch.arange(PIX, device=dev)
+    px = ((tid % tiles_x) * TILE)[:, None] + (p % TILE)[None, :]
+    py = ((tid // tiles_x) * TILE)[:, None] + (p // TILE)[None, :]
+    return px.to(torch.float32), py.to(torch.float32)
+
+
+def _chunks(records, tile_starts, tile_counts):
+    """Yield (column index [T, CHUNK], valid [T, CHUNK], rec [16, T, CHUNK])
+    for each 128-fragment chunk of every tile's range."""
+    p_cols = records.shape[1]
+    counts = tile_counts.to(torch.int64)
+    max_count = int(counts.max()) if counts.numel() else 0
+    lane = torch.arange(CHUNK, device=records.device)
+    for c0 in range(0, max_count, CHUNK):
+        k = c0 + lane[None, :]
+        valid = k < counts[:, None]
+        idx = torch.clamp(tile_starts.to(torch.int64)[:, None] + k, 0,
+                          p_cols - 1)
+        yield idx, valid, records[:, idx]
+
+
+def _chunk_alpha(rec, px, py, valid):
+    """Per-chunk elementwise math over [T, PIX, CHUNK]: offsets, the
+    Gaussian falloff g, o*g and the clamped, thresholded alpha."""
+    dx = px[:, :, None] - rec[0][:, None, :]
+    dy = py[:, :, None] - rec[1][:, None, :]
+    ca, cb, cc = rec[2][:, None, :], rec[3][:, None, :], rec[4][:, None, :]
+    sigma = 0.5 * (ca * dx * dx + cc * dy * dy) + cb * dx * dy
+    g = torch.exp(-sigma)
+    unclamped = rec[5][:, None, :] * g
+    alpha = torch.clamp(unclamped, max=ALPHA_MAX)
+    keep = (sigma >= 0) & (alpha >= ALPHA_EPS) & valid[:, None, :]
+    return dx, dy, g, unclamped, torch.where(keep, alpha, 0.0)
+
+
+def _walk(alpha, log_t):
+    """Front-to-back walk over a chunk's lanes with a carried [T, PIX] log
+    transmittance, one lane at a time — the association order of the CUDA
+    kernels, so each pixel's stop decision is taken on the same value.
+    Returns (contrib, t_excl, w) over [T, PIX, CHUNK] and the new carry."""
+    contrib, t_excl = [], []
+    for k in range(alpha.shape[2]):
+        lg = torch.log1p(-alpha[:, :, k])
+        log_t_incl = log_t + lg
+        contrib.append(log_t_incl >= LOG_T_EPS)
+        t_excl.append(torch.exp(log_t))
+        log_t = log_t_incl
+    contrib = torch.stack(contrib, dim=2)
+    t_excl = torch.stack(t_excl, dim=2)
+    w = torch.where(contrib, alpha * t_excl, 0.0)
+    return contrib, t_excl, w, log_t
+
+
+def rasterize_fwd_plain(records, tile_starts, tile_counts, tile_id_offset,
+                        tiles_x: int) -> torch.Tensor:
+    """Plain PyTorch version of the tile-forward kernel."""
+    num_tiles = tile_starts.shape[0]
+    px, py = _pixel_coords(tile_id_offset, num_tiles, tiles_x)
+    log_t = torch.zeros((num_tiles, PIX), device=records.device)
+    acc = torch.zeros((num_tiles, NUM_CHANNELS, PIX), device=records.device)
+    for _, valid, rec in _chunks(records, tile_starts, tile_counts):
+        alpha = _chunk_alpha(rec, px, py, valid)[4]
+        _, _, w, log_t = _walk(alpha, log_t)
+        feat = rec[_FEAT0:_FEAT1]                          # [8, T, K]
+        for k in range(w.shape[2]):
+            acc = acc + w[:, None, :, k] * feat[:, :, k].T[:, :, None]
+    return acc
+
+
+def rasterize_bwd_plain(records, tile_starts, tile_counts, tile_id_offset,
+                        out, gout, tiles_x: int) -> torch.Tensor:
+    """Plain PyTorch version of the tile-backward kernel: d_records [16, P]."""
+    num_tiles = tile_starts.shape[0]
+    px, py = _pixel_coords(tile_id_offset, num_tiles, tiles_x)
+    g_o = torch.sum(gout * out, dim=1)                     # [T, PIX]
+    log_t = torch.zeros((num_tiles, PIX), device=records.device)
+    prefu = torch.zeros((num_tiles, PIX), device=records.device)
+    d_records = torch.zeros_like(records)
+    for idx, valid, rec in _chunks(records, tile_starts, tile_counts):
+        dx, dy, g, unclamped, alpha = _chunk_alpha(rec, px, py, valid)
+        contrib, t_excl, w, log_t = _walk(alpha, log_t)
+        feat = rec[_FEAT0:_FEAT1]                          # [8, T, K]
+        fg = torch.einsum("tcp,ctk->tpk", gout, feat)
+        u = w * fg
+        prefix = []
+        for k in range(u.shape[2]):
+            prefu = prefu + u[:, :, k]
+            prefix.append(prefu)
+        suffix = g_o[:, :, None] - torch.stack(prefix, dim=2)
+        d_alpha = torch.where(contrib & (alpha > 0),
+                              t_excl * fg - suffix / (1.0 - alpha), 0.0)
+        d_unc = torch.where(unclamped < ALPHA_MAX, d_alpha, 0.0)
+        d_sigma = -unclamped * d_unc
+        ca, cb, cc = rec[2][:, None, :], rec[3][:, None, :], rec[4][:, None, :]
+        grads = torch.stack([
+            torch.sum(d_sigma * -(ca * dx + cb * dy), dim=1),
+            torch.sum(d_sigma * -(cc * dy + cb * dx), dim=1),
+            torch.sum(d_sigma * 0.5 * dx * dx, dim=1),
+            torch.sum(d_sigma * dx * dy, dim=1),
+            torch.sum(d_sigma * 0.5 * dy * dy, dim=1),
+            torch.sum(g * d_unc, dim=1),
+        ])                                                 # [6, T, K]
+        d_feat = torch.einsum("tcp,tpk->ctk", gout, w)     # [8, T, K]
+        vals = torch.cat([grads, d_feat], dim=0)           # [14, T, K]
+        d_records[:_FEAT1, idx[valid]] = vals[:, valid]
+    return d_records
+
+
+def _check_tile_args(records, tile_starts, tile_counts, tile_id_offset):
+    kernels.check_cuda(records, "records", torch.float32, 2)
+    if records.shape[0] != NUM_FIELDS:
+        raise ValueError(f"records: expected {NUM_FIELDS} rows")
+    kernels.check_cuda(tile_starts, "tile_starts", torch.int32, 1)
+    kernels.check_cuda(tile_counts, "tile_counts", torch.int32, 1)
+    kernels.check_cuda(tile_id_offset, "tile_id_offset", torch.int32, 1)
+
+
+def rasterize_fwd_impl(records, tile_starts, tile_counts, tile_id_offset,
+                       tiles_x: int) -> torch.Tensor:
+    """records [16, P] f32 depth-sorted; tile_starts/counts [T] i32 (unaligned
+    ranges); tile_id_offset [1] i32 global id of tile 0 -> [T, 8, 256] f32."""
+    if not records.is_cuda:
+        return rasterize_fwd_plain(records, tile_starts, tile_counts,
+                                   tile_id_offset, tiles_x)
+    _check_tile_args(records, tile_starts, tile_counts, tile_id_offset)
+    num_tiles = tile_starts.shape[0]
+    out = torch.empty((num_tiles, NUM_CHANNELS, PIX), dtype=torch.float32,
+                      device=records.device)
+    kernels.launch("tile_fwd", records, records.shape[1], tile_starts,
+                   tile_counts, tile_id_offset, num_tiles, tiles_x, out)
+    return out
+
+
+def rasterize_bwd_impl(records, tile_starts, tile_counts, tile_id_offset,
+                       out, gout, tiles_x: int) -> torch.Tensor:
+    """d(loss)/d(records) [16, P] from the tile-plane cotangent `gout`."""
+    if not records.is_cuda:
+        return rasterize_bwd_plain(records, tile_starts, tile_counts,
+                                   tile_id_offset, out, gout, tiles_x)
+    _check_tile_args(records, tile_starts, tile_counts, tile_id_offset)
+    kernels.check_cuda(out, "out", torch.float32, 3)
+    kernels.check_cuda(gout, "gout", torch.float32, 3)
+    d_records = torch.zeros_like(records)
+    kernels.launch("tile_bwd", records, records.shape[1], tile_starts,
+                   tile_counts, tile_id_offset, tile_starts.shape[0], tiles_x,
+                   out, gout, d_records)
+    return d_records
+
+
+def tiles_to_image(tile_out: torch.Tensor, tiles_x: int, tiles_y: int,
+                   image_width: int, image_height: int) -> torch.Tensor:
+    """[T, 8, 256] per-tile planes -> [H, W, 8] channels-last image."""
+    img = tile_out.reshape(tiles_y, tiles_x, NUM_CHANNELS, TILE, TILE)
+    img = img.permute(0, 3, 1, 4, 2)  # ty, py, tx, px, c
+    img = img.reshape(tiles_y * TILE, tiles_x * TILE, NUM_CHANNELS)
+    return img[:image_height, :image_width]

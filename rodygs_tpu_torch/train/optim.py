@@ -1,0 +1,84 @@
+"""Functional Adam over NamedTuples of tensors, and the camera pose
+optimizer's state and learning rates. Port of `rodygs_tpu/train/optim.py`
+(`AdamState`, `adam_init`, `adam_update`, `CameraPoses`, `camera_lr_tree`).
+
+Bias correction and eps placement follow torch.optim.Adam (eps 1e-15 as
+the reference sets it). The update is functional, like the JAX one: it
+returns new parameter and moment tensors.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple
+
+import torch
+
+
+class AdamState(NamedTuple):
+    mu: Any              # first moments (same NamedTuple type as params)
+    nu: Any              # second moments
+    count: torch.Tensor  # [] int32 step counter
+
+
+def _map(fn, *trees):
+    return type(trees[0])(*[fn(*leaves) for leaves in zip(*trees)])
+
+
+def adam_init(params: Any) -> AdamState:
+    return AdamState(mu=_map(torch.zeros_like, params),
+                     nu=_map(torch.zeros_like, params),
+                     count=torch.zeros((), dtype=torch.int32,
+                                       device=params[0].device))
+
+
+@torch.no_grad()
+def adam_update(grads: Any, state: AdamState, params: Any, lr: Any,
+                b1: float = 0.9, b2: float = 0.999, eps: float = 1e-15,
+                update_gate=None) -> tuple[Any, AdamState]:
+    """One Adam step. `lr` is a scalar or a NamedTuple of scalars matching
+    `params`. `update_gate` (0/1): when 0 the step is a full no-op —
+    params, moments and count all stay frozen."""
+    count = state.count + 1
+    t = count.to(torch.float32)
+    c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
+                                      device=t.device), t)
+    c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
+                                      device=t.device), t)
+    mu = _map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
+    nu = _map(lambda v, g: b2 * v + (1 - b2) * g * g, state.nu, grads)
+    if not isinstance(lr, tuple):
+        lr = type(params)(*[lr] * len(params))
+
+    def step(p, m, v, lr_p):
+        return p - lr_p * (m / c1) / (torch.sqrt(v / c2) + eps)
+
+    new_params = _map(step, params, mu, nu, lr)
+    if update_gate is not None:
+        keep = torch.as_tensor(update_gate, dtype=torch.float32) > 0.0
+
+        def sel(new, old):
+            return torch.where(keep.to(new.device), new, old)
+
+        new_params = _map(sel, new_params, params)
+        mu = _map(sel, mu, state.mu)
+        nu = _map(sel, nu, state.nu)
+        count = sel(count, state.count)
+    return new_params, AdamState(mu=mu, nu=nu, count=count)
+
+
+class CameraPoses(NamedTuple):
+    """Dataset-level learnable poses: q_c2w [F, 4], t_c2w [F, 3]."""
+
+    q_c2w: torch.Tensor
+    t_c2w: torch.Tensor
+
+
+def camera_lr_tree(step, rotation_lr: float, translation_lr: float,
+                   warmup: int, total_steps: int) -> CameraPoses:
+    """Per-leaf learning rates of the camera Adam at a step."""
+    from ..ops.schedules import warmup_cosine_lr
+
+    return CameraPoses(
+        q_c2w=warmup_cosine_lr(step, rotation_lr, warmup, total_steps),
+        t_c2w=warmup_cosine_lr(step, translation_lr, warmup, total_steps),
+    )

@@ -1,0 +1,349 @@
+"""Static 3DGS trainer. Port of `rodygs_tpu/train/trainer_static.py`
+(`StaticTrainerConfig`, `FrameBatch`, `EscalationPoller`, `scene_lr_gate`,
+`ThreeDGSTrainer.train_iteration`).
+
+One iteration: pose-differentiable render through the compact path, the
+MultiLoss, gradients over the Gaussian params, the camera poses and the
+`means2d` offset (densification statistic), Adam (eps 1e-15) for the
+Gaussians with the exponential xyz schedule, Adam for the poses, and the
+densify-stat accumulation. PyTorch runs eagerly, so there is no step
+variant to compile: a fragment-capacity change just allocates at the new
+size on the next render.
+
+Densification and the opacity reset are not ported yet (ROADMAP queue 1
+item 7): an iteration on which they would run raises NotImplementedError;
+`densification_interval=0` with an opacity reset interval beyond the run
+skips both, as the benchmark configures it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from ..models import gaussians as G
+from ..ops.schedules import expon_lr
+from ..render.camera import Camera
+from ..render.compact import (BAND_KEEP_MARGIN, bands_decision, bands_viable,
+                              escalation_poll_due, fit_capacity,
+                              fragment_capacity, join_profile,
+                              profile_for_demand, split_profile)
+from ..render.rasterize import render
+from ..utils.platform import resolve_device
+from .densify import DensifyStats, accumulate_stats, init_stats
+from .losses import MultiLoss
+from .optim import AdamState, CameraPoses, adam_init, adam_update, camera_lr_tree
+
+
+@dataclasses.dataclass(frozen=True)
+class StaticTrainerConfig:
+    """Hyperparameters (defaults = the JAX package's, which follow
+    `configs/train/train_kubric_mrig.yaml`)."""
+
+    num_iterations: int = 20000
+    position_lr_init: float = 0.00016
+    position_lr_final: float = 1.6e-6
+    position_lr_delay_mult: float = 0.01
+    position_lr_max_steps: int = 20000
+    feature_lr: float = 0.0025
+    opacity_lr: float = 0.05
+    scaling_lr: float = 0.005
+    rotation_lr: float = 0.001
+    percent_dense: float = 0.01
+    densification_interval: int = 100
+    opacity_reset_interval: int = 5_000_000
+    densify_from_iter: int = 500
+    densify_until_iter: int = 20000
+    densify_grad_threshold: float = 0.0002
+    apply_screen_size_prune: bool = False
+    camera_rotation_lr: float = 1e-5
+    camera_translation_lr: float = 1e-6
+    camera_lr_warmup: int = 0
+    camera_total_steps: int = 20000
+    scene_lr_delay: int = 0
+    camera_sparse_adam: bool = False
+    sh_degree: int = 3
+    isotropic: bool = False
+    image_width: int = 256
+    image_height: int = 256
+    max_fragments: int | None = None
+
+
+class FrameBatch(NamedTuple):
+    """One training view (tensors on the trainer's device)."""
+
+    gt_image: torch.Tensor              # [H, W, 3]
+    gt_depth: torch.Tensor | None       # [H, W]
+    motion_mask: torch.Tensor | None    # [H, W]
+    frame_idx: int                      # selects the pose row
+    time: torch.Tensor                  # [] float
+    fovx: torch.Tensor                  # [] float
+    fovy: torch.Tensor                  # [] float
+
+
+class StaticTrainState(NamedTuple):
+    store: G.GaussianStore
+    opt: AdamState                     # over GaussianParams
+    stats: DensifyStats
+    poses: CameraPoses
+    cam_opt: AdamState
+
+
+def init_static_state(store: G.GaussianStore,
+                      poses: CameraPoses) -> StaticTrainState:
+    return StaticTrainState(
+        store=store,
+        opt=adam_init(store.params),
+        stats=init_stats(G.capacity_of(store), device=store.alive.device),
+        poses=poses,
+        cam_opt=adam_init(poses),
+    )
+
+
+def make_camera_from_poses(poses: CameraPoses, batch: FrameBatch) -> Camera:
+    return Camera(q_c2w=poses.q_c2w[batch.frame_idx],
+                  t_c2w=poses.t_c2w[batch.frame_idx],
+                  fovx=batch.fovx, fovy=batch.fovy, time=batch.time)
+
+
+def scene_lr_gate(cfg: StaticTrainerConfig, iteration):
+    """0.0 during the pose-first warmup, 1.0 after."""
+    if cfg.scene_lr_delay <= 0:
+        return 1.0
+    return 0.0 if float(iteration) <= cfg.scene_lr_delay else 1.0
+
+
+def _param_lr_tree(cfg: StaticTrainerConfig, iteration, spatial_lr_scale):
+    """The six named param-group LRs, xyz on its schedule, all gated by the
+    pose-first warmup."""
+    xyz_lr = expon_lr(
+        iteration,
+        cfg.position_lr_init * spatial_lr_scale,
+        cfg.position_lr_final * spatial_lr_scale,
+        lr_delay_mult=cfg.position_lr_delay_mult,
+        max_steps=cfg.position_lr_max_steps,
+    )
+    gate = scene_lr_gate(cfg, iteration)
+    return G.GaussianParams(
+        xyz=xyz_lr * gate,
+        features_dc=cfg.feature_lr * gate,
+        features_rest=cfg.feature_lr / 20.0 * gate,
+        scaling=cfg.scaling_lr * gate,
+        rotation=cfg.rotation_lr * gate,
+        opacity=cfg.opacity_lr * gate,
+    )
+
+
+class EscalationPoller:
+    """Demand-driven fragment-capacity escalation and shrinking with
+    deferred host reads; the logic is the JAX package's, unchanged (see its
+    docstring). On a poll iteration it acts on the metrics saved at the
+    previous poll, so steady state never waits on the step just enqueued;
+    the first poll (iteration 5) fits the capacity to the observed demand
+    at once."""
+
+    def __init__(self, allow_shrink: bool = True):
+        self._probe = None
+        self._shrink_fit = None
+        self._bands_pending = None
+        self._initial_fit_pending = True
+        self.allow_shrink = allow_shrink
+
+    def _fit_with_bands(self, capacity: int, demand: int):
+        fit = fit_capacity(capacity, demand)
+        return fit, bands_decision(capacity, fit, demand)
+
+    def poll(self, iteration: int, metrics: dict, capacity: int, profile):
+        """Returns the new fragment profile, or None."""
+        if not escalation_poll_due(iteration):
+            return None
+        probe = self._probe if self._probe is not None else metrics
+        self._probe = metrics
+        prof, bands = split_profile(profile)
+        cur = fragment_capacity(capacity, prof)
+        demand = int(probe["num_fragments"])
+        if bool(probe["overflow"]):
+            self._shrink_fit = None
+            self._bands_pending = None
+            self._initial_fit_pending = False
+            if bands > 1:
+                for b in range(bands - 1, 0, -1):
+                    if bands_viable(capacity, cur, demand, b):
+                        self._probe = None
+                        return join_profile(prof, b)
+            wider = profile_for_demand(capacity, demand, prof, bands=bands)
+            if wider is None:
+                return None
+            self._probe = None
+            wcap = fragment_capacity(capacity, wider)
+            return join_profile(wider,
+                                bands_decision(capacity, wcap, demand))
+        if not self.allow_shrink:
+            return None
+        fit, fit_bands = self._fit_with_bands(capacity, demand)
+        if self._initial_fit_pending:
+            self._initial_fit_pending = False
+            if fit * 5 // 4 <= cur:
+                self._probe = None
+                return join_profile(fit, fit_bands)
+            return None
+        if iteration <= 100:
+            return None
+        if fit * 5 // 4 <= cur:
+            prev_fit, self._shrink_fit = self._shrink_fit, fit
+            if prev_fit is None:
+                return None
+            self._probe = None
+            self._shrink_fit = None
+            fit = max(fit, prev_fit)
+            return join_profile(fit, bands_decision(capacity, fit, demand))
+        self._shrink_fit = None
+        if not bands_viable(capacity, cur, demand, bands):
+            self._probe = None
+            self._bands_pending = None
+            return join_profile(
+                prof, bands_decision(capacity, cur, demand,
+                                     margin=BAND_KEEP_MARGIN))
+        want_b = bands_decision(capacity, cur, demand)
+        if want_b <= bands:
+            self._bands_pending = None
+            return None
+        prev, self._bands_pending = self._bands_pending, want_b
+        if prev != want_b:
+            return None
+        self._probe = None
+        self._bands_pending = None
+        return join_profile(prof, want_b)
+
+
+class ThreeDGSTrainer:
+    """Host-side orchestration of the static train step on one device."""
+
+    def __init__(self, cfg: StaticTrainerConfig, loss: MultiLoss,
+                 store: G.GaussianStore, poses: CameraPoses,
+                 spatial_lr_scale: float, device=None):
+        if cfg.camera_sparse_adam:
+            raise NotImplementedError(
+                "camera_sparse_adam is not ported yet (ROADMAP queue 1 item 6)")
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.loss = loss
+        self.spatial_lr_scale = float(spatial_lr_scale)
+        move = lambda tree: type(tree)(*[x.to(self.device) for x in tree])
+        store = store._replace(params=move(store.params),
+                               alive=store.alive.to(self.device),
+                               time=store.time.to(self.device),
+                               time_ind=store.time_ind.to(self.device))
+        self.state = init_static_state(store, move(poses))
+        self.active_sh_degree = 0
+        self.fragment_profile: str | int = "lean"
+        self._escalation = EscalationPoller()
+
+    def render_view(self, params: G.GaussianParams, alive, poses: CameraPoses,
+                    offset, batch: FrameBatch, sh_degree: int,
+                    fragment_profile="lean"):
+        """Render one batch view from (possibly grad-requiring) tensors."""
+        cfg = self.cfg
+        camera = make_camera_from_poses(poses, batch)
+        out = render(
+            params.xyz, G.get_features(params), G.get_opacity(params),
+            G.get_scaling(params, cfg.isotropic), params.rotation, camera,
+            sh_degree, cfg.image_width, cfg.image_height,
+            alive=alive, means2d_offset=offset,
+            fragment_profile=fragment_profile,
+            include_normal=self.loss.uses_normal)
+        return out, camera
+
+    def loss_and_grads(self, state: StaticTrainState, batch: FrameBatch,
+                       active, sh_degree: int, fragment_profile="lean"):
+        """Loss, aux outputs and the gradients (params, poses, offset)."""
+        params = type(state.store.params)(
+            *[p.detach().requires_grad_(True) for p in state.store.params])
+        poses = CameraPoses(*[p.detach().requires_grad_(True)
+                              for p in state.poses])
+        offset = torch.zeros((2, G.capacity_of(state.store)),
+                             device=self.device, requires_grad=True)
+        out, _ = self.render_view(params, state.store.alive, poses, offset,
+                                  batch, sh_degree, fragment_profile)
+        ctx = {
+            "pred_img": out["rendered_image"],
+            "gt_img": batch.gt_image,
+            "pred_depth": out["rendered_depth"],
+            "gt_depth": batch.gt_depth,
+            "pred_normal": out["rendered_normal"],
+            "motion_mask": batch.motion_mask,
+            "alive": state.store.alive,
+        }
+        total, loss_dict = self.loss(ctx, active)
+        leaves = [*params, *poses, offset]
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g
+                 for x, g in zip(leaves, grads)]
+        n_p = len(params)
+        g_params = type(params)(*grads[:n_p])
+        g_poses = CameraPoses(*grads[n_p:n_p + 2])
+        aux = {
+            "radii": out["radii"],
+            "visible": out["visibility_filter"],
+            "loss_dict": {k: v.detach() for k, v in loss_dict.items()},
+            "overflow": out["overflow"],
+            "dropped": out["dropped"],
+            "num_fragments": out["num_fragments"],
+        }
+        return total.detach(), aux, (g_params, g_poses, grads[-1])
+
+    def step(self, state: StaticTrainState, batch: FrameBatch, iteration,
+             active, sh_degree: int, fragment_profile="lean"):
+        """One full step from `state`; returns (new_state, metrics)."""
+        cfg = self.cfg
+        total, aux, (g_params, g_poses, g_offset) = self.loss_and_grads(
+            state, batch, active, sh_degree, fragment_profile)
+        lr_tree = _param_lr_tree(cfg, iteration, self.spatial_lr_scale)
+        gate = scene_lr_gate(cfg, iteration)
+        new_params, new_opt = adam_update(
+            g_params, state.opt, state.store.params, lr_tree,
+            update_gate=gate if cfg.scene_lr_delay > 0 else None)
+        cam_lrs = camera_lr_tree(
+            iteration, cfg.camera_rotation_lr, cfg.camera_translation_lr,
+            cfg.camera_lr_warmup, cfg.camera_total_steps)
+        new_poses, new_cam_opt = adam_update(
+            g_poses, state.cam_opt, state.poses, cam_lrs)
+        new_stats = accumulate_stats(
+            state.stats, g_offset, aux["radii"].to(torch.float32),
+            aux["visible"])
+        if cfg.scene_lr_delay > 0 and gate == 0.0:
+            new_stats = state.stats
+        new_state = StaticTrainState(
+            store=state.store._replace(params=new_params),
+            opt=new_opt, stats=new_stats, poses=new_poses,
+            cam_opt=new_cam_opt)
+        metrics = {"loss": total, "overflow": aux["overflow"],
+                   "dropped": aux["dropped"],
+                   "num_fragments": aux["num_fragments"],
+                   **aux["loss_dict"]}
+        return new_state, metrics
+
+    def train_iteration(self, batch: FrameBatch, iteration: int) -> dict:
+        active = self.loss.active_set(iteration)
+        self.state, metrics = self.step(
+            self.state, batch, float(iteration), active,
+            self.active_sh_degree, self.fragment_profile)
+        wider = self._escalation.poll(
+            iteration, metrics, G.capacity_of(self.state.store),
+            self.fragment_profile)
+        if wider is not None:
+            self.fragment_profile = wider
+        cfg = self.cfg
+        if iteration < cfg.densify_until_iter:
+            densify_due = (cfg.densification_interval != 0
+                           and iteration > cfg.densify_from_iter
+                           and iteration % cfg.densification_interval == 0)
+            reset_due = (cfg.opacity_reset_interval != 0
+                         and iteration % cfg.opacity_reset_interval == 0)
+            if densify_due or reset_due:
+                raise NotImplementedError(
+                    "densification / opacity reset are not ported yet "
+                    "(ROADMAP queue 1 item 7)")
+        return metrics
