@@ -5,11 +5,19 @@
 
 Phases (any failure exits non-zero; no phase is caught and skipped):
   1. build   — compile the four CUDA kernels of rodygs_tpu_torch/csrc from
-               source (one nvcc per file, in parallel); print the seconds.
+               source (one nvcc per file, in parallel); print the seconds,
+               ptxas's registers and shared memory, and the blocks of each
+               tile kernel that one SM holds (the CUDA runtime's count).
   2. check   — on a 128x128, 5k-gaussian render's own binning (tight=True
                and tight="rows"), hold every kernel against its plain
                PyTorch version on the card, and a full CUDA render against
-               the same render on the CPU.
+               the same render on the CPU. Then the inputs the tile
+               kernels' parts fear: needles and blobs with opacities on
+               both sides of 1/255 (the cull's margin), hand-made tiles of
+               0, 32, 33, 64, 65 and 2,100 fragments (batch edges), the
+               second half of the tile grid under tile_id_offset = T/2,
+               both include_normal settings, and the backward twice on the
+               same inputs for equal bits.
   3. train   — the bench.py workload through the port's public entry
                points: 512x512, 100k points in a 131,072-slot store, SH 3,
                8 frames, L1 0.8 + D-SSIM 0.2, camera lr 1e-5 / 1e-6, 200
@@ -27,7 +35,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
   5. time    — each kernel, its plain version and (segsum) the one-call
                library equivalent `index_add_`, timed with CUDA events at
                the shapes of the trained state's render; the least time
-               (bound) from the bytes and operations of this run's inputs.
+               (bound) from the bytes and operations of this run's inputs;
+               the tile-count distribution and the (warp, fragment) pair
+               counts of that render (`kernel_check.walk_stats`).
   6. report  — the card's name and power limit (nvidia-smi), one JSON line
                of per-kernel numbers, and last {"ok": true, "device": ...}.
 
@@ -40,6 +50,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -56,13 +67,25 @@ PEAK_FP32_FLOPS = 67e12
 # form 9, negate and exp 2, opacity product 1, clamp 1, two tests 2 => 17;
 # that is all a rejected pair costs (sigma < 0, alpha < 1/255, or the one
 # that stops the pixel). A contributing pair adds, forward: log1p, add,
-# stop test, exp, weight 5 and the 8-channel accumulate 16 => 38;
-# backward: the same 5, f.g 16, prefix 2, suffix 1, d_alpha 4, clamp
-# select 1, d_sigma 2, the six geometry grads 19, 8 feature grads 8 and the
-# 14-value pixel reduction 14 => 89.
+# stop test, the transmittance (an exp or a product step), weight 5 and the
+# 8-channel accumulate 16 => 38; backward: the same 5, f.g 16, prefix 2,
+# suffix 1, d_alpha 4, clamp select 1, d_sigma 2, the six geometry grads 19,
+# 8 feature grads 8 and the 14-value pixel reduction 14 => 89.
+# Without the normal rows (the trainer's renders) five channels are live and
+# the alpha feature is the constant 1: the accumulate is 4 FMAs and an add,
+# 9 => 31; backward f.g is 9, the feature grads 5 and the reduction 11 => 76.
+# The rejected pairs are counted as the cheapest known correct walk needs
+# them (`rejected_ops`): every pair a pixel rejects at 17, or one rectangle
+# test per (warp, fragment) of the tile's walk and 17 for the rejected pairs
+# inside the (warp, fragment) pairs the test keeps. The test
+# (csrc/tile_common.cuh::rect_may_take): opacity and convexity 8, offsets
+# and the inside test 8, two quotients 4, four clamped edge minima of the
+# form 51, the margin's magnitude 16, log and compare 6 => 93.
+# The work the function needs, whatever implements it.
 REJECTED_OPS_PER_PAIR = 17
-FWD_OPS_PER_CONTRIB = 38
-BWD_OPS_PER_CONTRIB = 89
+CULL_OPS_PER_TEST = 93
+FWD_OPS_PER_CONTRIB = {True: 38, False: 31}
+BWD_OPS_PER_CONTRIB = {True: 89, False: 76}
 
 SOURCES = {
     "expand": ("rodygs_tpu_torch/csrc/expand.cu",
@@ -115,6 +138,22 @@ def bound(bytes_moved, ops):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def rejected_ops(contrib, rejected, warp_pairs):
+    """Operations the rejected (pixel, fragment) pairs need at the least:
+    the smaller of the per-pixel walk (every rejected pair evaluated) and,
+    for each warp shape, a culled walk (one rectangle test per (warp,
+    fragment) of the tile's walk, then only the lanes of kept pairs)."""
+    counts = {"per pixel": REJECTED_OPS_PER_PAIR * rejected}
+    for shape, n in warp_pairs.items():
+        counts[f"culled {shape}"] = (
+            CULL_OPS_PER_TEST * n["block_walk"]
+            + REJECTED_OPS_PER_PAIR * (n["kept_lanes"] - contrib))
+    walk = min(counts, key=counts.get)
+    log("[time] operations for the rejected pairs: " + " ".join(
+        f"{k}={v}" for k, v in counts.items()) + f"; the bound takes {walk!r}")
+    return counts[walk]
+
+
 def time_kernels(s):
     """{kernel: dict(ms, plain_ms, library_ms, bound_ms, bound_by)}."""
     import torch
@@ -127,12 +166,19 @@ def time_kernels(s):
     cap = bases.shape[0] * C.FCHUNK
     n_kept = int(fk)
     args = (s["records"], cb.tile_starts, cb.tile_counts, s["off"])
+    normals = s["include_normal"]
     p_cols = s["records"].shape[1]
     num_tiles = cb.tile_starts.shape[0]
-    plane_bytes = num_tiles * TK.NUM_CHANNELS * TK.PIX * 4
-    # the compositors read the 14 used rows of the fragments in tile ranges
-    rec_bytes = 14 * int(cb.tile_counts.sum()) * 4 + num_tiles * 8
+    plane_bytes = num_tiles * TK.PIX * 4
+    # the compositors read the used rows of the fragments in tile ranges:
+    # 6 geometry rows and the live feature rows (the alpha feature is a
+    # constant without normals)
+    n_live = 8 if normals else 5
+    rec_bytes = ((14 if normals else 10) * int(cb.tile_counts.sum()) * 4
+                 + num_tiles * 8)
     contrib, rejected = KC.needed_pairs(s)
+    stats = KC.walk_stats(s)
+    ops_rejected = rejected_ops(contrib, rejected, stats["warp_pairs"])
     d = s["d_presort"]
     n_rows, nw = d.shape[0], tab.shape[1]
     # segsum reads only the f_kept filled slots; so does the library call
@@ -148,23 +194,39 @@ def time_kernels(s):
         plain_ms=time_ms(lambda: C.expand_fragments_plain(
             tab, bases, fk, s["tx"], s["db"]), reps=3),
         library_ms=None, bound_ms=b, bound_by=by)
-    b, by = bound(rec_bytes + plane_bytes,
-                  FWD_OPS_PER_CONTRIB * contrib
-                  + REJECTED_OPS_PER_PAIR * rejected)
+    # forward: all 8 planes are written; backward: the live planes of O and
+    # g are read and all 16 rows of d_records written
+    b, by = bound(rec_bytes + 8 * plane_bytes,
+                  FWD_OPS_PER_CONTRIB[normals] * contrib + ops_rejected)
     res["tile_fwd"] = dict(
-        ms=time_ms(lambda: TK.rasterize_fwd_impl(*args, s["tx"])),
-        plain_ms=time_ms(lambda: TK.rasterize_fwd_plain(*args, s["tx"]),
-                         reps=2),
+        ms=time_ms(lambda: TK.rasterize_fwd_impl(*args, s["tx"], normals)),
+        plain_ms=time_ms(lambda: TK.rasterize_fwd_plain(*args, s["tx"],
+                                                        normals), reps=2),
         library_ms=None, bound_ms=b, bound_by=by)
-    b, by = bound(rec_bytes + 2 * plane_bytes + 16 * p_cols * 4,
-                  BWD_OPS_PER_CONTRIB * contrib
-                  + REJECTED_OPS_PER_PAIR * rejected)
+    b, by = bound(rec_bytes + 2 * n_live * plane_bytes + 16 * p_cols * 4,
+                  BWD_OPS_PER_CONTRIB[normals] * contrib + ops_rejected)
     res["tile_bwd"] = dict(
         ms=time_ms(lambda: TK.rasterize_bwd_impl(*args, s["out"], s["gout"],
-                                                 s["tx"])),
+                                                 s["tx"], normals)),
         plain_ms=time_ms(lambda: TK.rasterize_bwd_plain(
-            *args, s["out"], s["gout"], s["tx"]), reps=2),
+            *args, s["out"], s["gout"], s["tx"], normals), reps=2),
         library_ms=None, bound_ms=b, bound_by=by)
+    # the heaviest tile alone: what one block's serial walk takes, the floor
+    # of any one-block-per-tile design on this data
+    heavy = int(cb.tile_counts.argmax())
+    h_args = (s["records"], cb.tile_starts[heavy:heavy + 1].contiguous(),
+              cb.tile_counts[heavy:heavy + 1].contiguous(),
+              torch.tensor([heavy], dtype=torch.int32, device=d.device))
+    h_out = s["out"][heavy:heavy + 1].contiguous()
+    h_gout = s["gout"][heavy:heavy + 1].contiguous()
+    log(f"[time] heaviest tile alone ({int(cb.tile_counts[heavy])} "
+        f"fragments, one block): tile_fwd "
+        f"{time_ms(lambda: TK.rasterize_fwd_impl(*h_args, s['tx'], normals)):.4f}"
+        f" ms, tile_bwd "
+        f"{time_ms(lambda: TK.rasterize_bwd_impl(*h_args, h_out, h_gout, s['tx'], normals)):.4f}"
+        f" ms (with its zero fill)")
+    log(f"[time] zero fill of d_records [16, {p_cols}] inside tile_bwd's "
+        f"wrapper: {time_ms(lambda: torch.zeros_like(s['records'])):.4f} ms")
     b, by = bound(n_rows * n_kept * 4 + nw * 4 + n_rows * nw * 4,
                   n_rows * n_kept)
     res["segsum"] = dict(
@@ -174,8 +236,40 @@ def time_kernels(s):
             (n_rows, nw), device=d.device).index_add_(1, owner, d_kept)),
         bound_ms=b, bound_by=by)
     log(f"[time] C={cap} P={p_cols} tiles={num_tiles} f_kept={n_kept} "
-        f"pairs: contributing={contrib} rejected={rejected}")
+        f"include_normal={normals} pairs: contributing={contrib} "
+        f"rejected={rejected}")
+    for k in ("tile_counts", "tile_walked"):
+        log(f"[time] {k} (fragments per tile): " + " ".join(
+            f"{n}={v:.1f}" for n, v in stats[k].items()))
+    for shape, n in stats["warp_pairs"].items():
+        log(f"[time] (warp, fragment) pairs, warp = {shape} "
+            f"{TK.WARP_SHAPES[shape]}: " + " ".join(
+                f"{k}={v}" for k, v in n.items()))
     return res
+
+
+def occupancy_lines(build_log):
+    """ptxas's register, spill and shared-memory lines of every kernel, and
+    the blocks of each tile kernel one SM holds: the runtime's count from
+    registers, static and dynamic shared memory and threads."""
+    from rodygs_tpu_torch import kernels
+
+    lines = []
+    for name, text in build_log.items():
+        entry = name
+        for line in text.splitlines():
+            m = re.search(r"Compiling entry function '(\w+)'", line)
+            if m:   # the template argument, ILb0E / ILb1E, tells the two apart
+                entry = f"{name}<{m.group(1)}>"
+            if "registers" in line or "spill" in line:
+                lines.append(f"[build] {entry}: {line.strip()}")
+    for name in ("tile_fwd", "tile_bwd"):
+        for normals in (False, True):
+            blocks = kernels.blocks_per_sm(name, normals)
+            require(blocks > 0, f"{name} does not fit an SM")
+            lines.append(f"[build] {name} include_normal={normals}: {blocks} "
+                         f"resident blocks of 256 threads per SM")
+    return lines
 
 
 # --------------------------------------------------------------------------
@@ -189,15 +283,58 @@ def phase_check(device):
     from rodygs_tpu_torch.models import gaussians as G
     from rodygs_tpu_torch.render.rasterize import render
 
-    params, cam = KC.random_scene(5000, 3, device, log_scale=(-4.0, -2.6))
+    from rodygs_tpu_torch.render import tile_kernel as TK
+
     errs = {}
+
+    def keep(e):
+        for k, v in e.items():
+            errs[k] = max(errs.get(k, 0.0), v)
+
+    params, cam = KC.random_scene(5000, 3, device, log_scale=(-4.0, -2.6))
     for tight in (True, "rows"):
         s = KC.capture_stages(params, None, cam, 3, 128, 128, "lean", tight, 1)
         e = KC.check_stages(s)
         log(f"[check] 128x128 n=5000 tight={tight!r} "
             f"fragments={int(s['cb'].num_fragments)} max_abs_err={e}")
-        for k, v in e.items():
-            errs[k] = max(errs.get(k, 0.0), v)
+        keep(e)
+
+    # the second half of the tile grid alone, under tile_id_offset = T/2
+    cb, half = s["cb"], s["cb"].tile_starts.shape[0] // 2
+    off = torch.tensor([half], dtype=torch.int32, device=device)
+    args = (s["records"], cb.tile_starts[half:].contiguous(),
+            cb.tile_counts[half:].contiguous(), off)
+    e = KC.check_tiles(*args, s["tx"], False)
+    out = TK.rasterize_fwd_impl(*args, s["tx"], False)
+    require(torch.equal(out, s["out"][half:]),
+            "tile_fwd under tile_id_offset differs from the whole render")
+    log(f"[check] tile_id_offset={half}: max_abs_err={e}, forward equal to "
+        f"the whole render's second half")
+    keep(e)
+
+    # needles and blobs, opacities on both sides of 1/255: the cull's margin
+    nb_params, nb_cam = KC.random_scene(5000, 3, device, log_scale=(-6.0, -1.0),
+                                        opacity=(0.004, 0.99))
+    for include_normal in (False, True):
+        s = KC.capture_stages(nb_params, None, nb_cam, 3, 128, 128, "lean",
+                              True, 1, include_normal=include_normal)
+        e = KC.check_stages(s)
+        log(f"[check] needles and blobs include_normal={include_normal} "
+            f"fragments={int(s['cb'].num_fragments)} max_abs_err={e}")
+        keep(e)
+
+    # batch edges: tiles of 0, one batch, one more, and over 2,000 fragments
+    counts = [0, 32, 33, 64, 65, 1, 2100, 0, 31, 129, 2500, 64]
+    rec, starts, cnts, off = KC.synthetic_tiles(counts, 4, device, 4)
+    for include_normal in (False, True):
+        if include_normal:
+            gen = torch.Generator(device=device).manual_seed(2)
+            rec[10:14] = torch.rand((4, rec.shape[1]), generator=gen,
+                                    device=device)
+        e = KC.check_tiles(rec, starts, cnts, off, 4, include_normal)
+        log(f"[check] tile counts {counts} include_normal={include_normal}: "
+            f"max_abs_err={e}; tile backward twice: equal bits")
+        keep(e)
 
     # the whole render on the card against the same render on the CPU
     with torch.no_grad():
@@ -337,14 +474,14 @@ def phase_profile(trainer, batch_for, first_iteration, steps=5):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()   # after the profiler's own start-up
         for it in range(first_iteration, first_iteration + steps):
             trainer.train_iteration(batch_for(it - 1), it)
         torch.cuda.synchronize()
-    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
 
     def dev_us(e):
         return getattr(e, "self_device_time_total",
@@ -355,9 +492,7 @@ def phase_profile(trainer, batch_for, first_iteration, steps=5):
               if e.device_type == torch.autograd.DeviceType.CUDA
               and dev_us(e) > 0]
     total_ms = sum(dev_us(e) for e in events) / 1e3 / steps
-    if total_ms == 0:
-        log("[profile] device time: not measured (the profiler saw none)")
-        return
+    require(total_ms > 0, "the profiler saw no device time")
     log(f"[profile] {steps} steps: wall {wall_ms:.3f} ms/step (profiler on), "
         f"device busy {total_ms:.3f} ms/step = "
         f"{100 * total_ms / wall_ms:.1f}% of wall")
@@ -387,10 +522,8 @@ def main() -> int:
 
     secs = kernels.build_all()
     log(f"[build] {secs:.2f} s")
-    for name, text in kernels.BUILD_LOG.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {name}: {line.strip()}")
+    for line in occupancy_lines(kernels.BUILD_LOG):
+        log(line)
 
     errs = phase_check(device)
     trainer, batch_for, launches, iterations = phase_train(device)

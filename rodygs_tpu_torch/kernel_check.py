@@ -5,9 +5,12 @@
 seeded random cotangent, unsort), keeping every kernel's inputs and
 outputs; `check_stages` recomputes each kernel's output with its plain
 version on the same inputs and raises `KernelMismatch` past the stated
-tolerance. `needed_pairs` counts the (pixel, fragment) pairs the compositor
-must evaluate on that data, for the kernels' operation bound.
-`random_scene` builds the seeded test scene these checks run on.
+tolerance. `check_tiles` does so for the two tile kernels on any ranges,
+`synthetic_tiles` makes ranges of chosen lengths. `needed_pairs` counts the
+(pixel, fragment) pairs the compositor must evaluate on that data, for the
+kernels' operation bound; `walk_stats` counts the same walk at warp
+granularity. `random_scene` builds the seeded test scene these checks run
+on.
 
 Used by `chip_smoke.py` and the on-card tests (tests/test_torch_cuda.py).
 On CPU tensors the "kernel" side is itself the plain version, which keeps
@@ -73,9 +76,11 @@ def random_scene(n: int, seed: int, device, opacity=(0.2, 0.95),
 
 @torch.no_grad()
 def capture_stages(params: G.GaussianParams, alive, camera, sh_degree: int,
-                   width: int, height: int, profile, tight, seed: int) -> dict:
-    """One render's kernel inputs and outputs (normal rows left out of the
-    sort, as the trainer renders); the cotangent is seeded normal noise."""
+                   width: int, height: int, profile, tight, seed: int,
+                   include_normal: bool = False) -> dict:
+    """One render's kernel inputs and outputs; the cotangent is seeded normal
+    noise. include_normal=False leaves the normal rows out of the sort and
+    tells the tile kernels so, as the trainer renders."""
     tx, ty = tile_grid(width, height)
     splats = preprocess(params.xyz, G.get_scaling(params), params.rotation,
                         G.get_opacity(params), G.get_features(params),
@@ -89,21 +94,54 @@ def capture_stages(params: G.GaussianParams, alive, camera, sh_degree: int,
     table = C.build_table(rec13, cb.aux_rows).contiguous()
     db = C.depth_key_bits(tx, ty)
     key, rec = C.expand_fragments(table, cb.bases, cb.f_kept, tx, db)
-    perm, rows = C.sort_fragments(key, rec[:C.N_CORE_ROWS])
+    n_rows = C.NUM_REC_ROWS if include_normal else C.N_CORE_ROWS
+    perm, rows = C.sort_fragments(key, rec[:n_rows])
     records = C.stack_records(rows)
     off = torch.zeros((1,), dtype=torch.int32, device=table.device)
     out = TK.rasterize_fwd_impl(records, cb.tile_starts, cb.tile_counts,
-                                off, tx)
+                                off, tx, include_normal)
     gen = torch.Generator(device=table.device).manual_seed(seed)
     gout = torch.randn(out.shape, generator=gen, device=table.device)
     d_rec = TK.rasterize_bwd_impl(records, cb.tile_starts, cb.tile_counts,
-                                  off, out, gout, tx)
-    d_presort = torch.empty((C.N_CORE_ROWS, perm.shape[0]),
-                            device=table.device)
-    d_presort[:, perm] = d_rec[:C.N_CORE_ROWS]
+                                  off, out, gout, tx, include_normal)
+    d_presort = torch.empty((n_rows, perm.shape[0]), device=table.device)
+    d_presort[:, perm] = d_rec[:n_rows]
     return dict(tx=tx, db=db, cb=cb, table=table, key=key, rec=rec,
                 records=records, off=off, out=out, gout=gout,
-                d_presort=d_presort)
+                d_presort=d_presort, include_normal=include_normal)
+
+
+@torch.no_grad()
+def check_tiles(records, tile_starts, tile_counts, off, tx: int,
+                include_normal: bool, out=None, gout=None, seed: int = 1
+                ) -> dict:
+    """The two tile kernels against their plain versions on these ranges;
+    the backward runs twice and must give the same bits. `out` / `gout`
+    default to the kernel's forward and seeded normal noise. Returns
+    {"tile_fwd": max_abs_err, "tile_bwd": max_abs_err}."""
+    args = (records, tile_starts, tile_counts, off)
+    if out is None:
+        out = TK.rasterize_fwd_impl(*args, tx, include_normal)
+    if gout is None:
+        gen = torch.Generator(device=records.device).manual_seed(seed)
+        gout = torch.randn(out.shape, generator=gen, device=records.device)
+    errs = {}
+    diff = (out - TK.rasterize_fwd_plain(*args, tx, include_normal)).abs()
+    e_img = float(torch.maximum(diff[:, 0:3].max(), diff[:, 7].max()))
+    e_geo = float(diff[:, 3:7].max())
+    errs["tile_fwd"] = float(diff.max())
+    _require(e_img <= TOL_FWD_IMAGE and e_geo <= TOL_FWD_GEOMETRY,
+             f"tile_fwd: rgb/alpha {e_img:.3g}, depth/normal {e_geo:.3g}")
+
+    k_rec = TK.rasterize_bwd_impl(*args, out, gout, tx, include_normal)
+    if records.is_cuda:   # on the CPU both runs are the plain version
+        again = TK.rasterize_bwd_impl(*args, out, gout, tx, include_normal)
+        _require(torch.equal(k_rec, again), "tile_bwd: two runs differ")
+    p_rec = TK.rasterize_bwd_plain(*args, out, gout, tx, include_normal)
+    errs["tile_bwd"] = float((k_rec - p_rec).abs().max())
+    rel = errs["tile_bwd"] / (float(p_rec.abs().max()) + 1e-30)
+    _require(rel <= TOL_BWD_SCALED, f"tile_bwd: scaled error {rel:.3g}")
+    return errs
 
 
 @torch.no_grad()
@@ -120,19 +158,9 @@ def check_stages(s: dict) -> dict:
     errs["expand"] = float((s["rec"][:, valid] - prec[:, valid]).abs().max())
     _require(errs["expand"] == 0.0, f"expand: records differ {errs['expand']}")
 
-    args = (s["records"], cb.tile_starts, cb.tile_counts, s["off"])
-    diff = (s["out"] - TK.rasterize_fwd_plain(*args, s["tx"])).abs()
-    e_img = float(torch.maximum(diff[:, 0:3].max(), diff[:, 7].max()))
-    e_geo = float(diff[:, 3:7].max())
-    errs["tile_fwd"] = float(diff.max())
-    _require(e_img <= TOL_FWD_IMAGE and e_geo <= TOL_FWD_GEOMETRY,
-             f"tile_fwd: rgb/alpha {e_img:.3g}, depth/normal {e_geo:.3g}")
-
-    k_rec = TK.rasterize_bwd_impl(*args, s["out"], s["gout"], s["tx"])
-    p_rec = TK.rasterize_bwd_plain(*args, s["out"], s["gout"], s["tx"])
-    errs["tile_bwd"] = float((k_rec - p_rec).abs().max())
-    rel = errs["tile_bwd"] / (float(p_rec.abs().max()) + 1e-30)
-    _require(rel <= TOL_BWD_SCALED, f"tile_bwd: scaled error {rel:.3g}")
+    errs.update(check_tiles(s["records"], cb.tile_starts, cb.tile_counts,
+                            s["off"], s["tx"], s["include_normal"],
+                            out=s["out"], gout=s["gout"]))
 
     seg = C.segment_sum_rows(s["d_presort"], s["table"], cb.f_kept)
     pseg = C.segment_sum_rows_plain(s["d_presort"], s["table"], cb.f_kept)
@@ -142,24 +170,118 @@ def check_stages(s: dict) -> dict:
     return errs
 
 
+def synthetic_tiles(counts, seed: int, device, tiles_x: int,
+                    tile_id_offset: int = 0, opacity=(0.002, 0.6)):
+    """(records [16, P], tile_starts, tile_counts, off): hand-made abutting
+    tile ranges of the given lengths, for the batch edges of the tile
+    kernels. Fragments are random blobs and needles centred in and around
+    their tile (numpy seed), opacities on both sides of 1/255, normal rows
+    zero and the alpha feature one, with a tail of unused columns."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray(counts, np.int64)
+    total = int(counts.sum())
+    p_cols = total + 37
+    tile = np.repeat(np.arange(len(counts)) + tile_id_offset, counts)
+    cx = (tile % tiles_x) * TK.TILE + 7.5
+    cy = (tile // tiles_x) * TK.TILE + 7.5
+    rec = np.zeros((TK.NUM_FIELDS, p_cols), np.float32)
+    rec[0, :total] = cx + rng.uniform(-14, 14, total)
+    rec[1, :total] = cy + rng.uniform(-14, 14, total)
+    # conic = R diag(1/s1^2, 1/s2^2) R^T with axes from 0.3 to 20 pixels
+    s1, s2 = np.exp(rng.uniform(np.log(0.3), np.log(20.0), (2, total)))
+    th = rng.uniform(0, np.pi, total)
+    c, s = np.cos(th), np.sin(th)
+    rec[2, :total] = c * c / s1**2 + s * s / s2**2
+    rec[3, :total] = c * s * (1 / s1**2 - 1 / s2**2)
+    rec[4, :total] = s * s / s1**2 + c * c / s2**2
+    rec[5, :total] = np.exp(rng.uniform(*np.log(opacity), total))
+    rec[6:9, :total] = rng.uniform(0.0, 1.0, (3, total))
+    rec[9, :total] = np.sort(rng.uniform(2.0, 7.0, total))
+    rec[13] = 1.0
+    starts = np.cumsum(counts) - counts
+    as_i32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.int32,
+                                    device=device)
+    return (torch.tensor(rec, device=device), as_i32(starts), as_i32(counts),
+            as_i32([tile_id_offset]))
+
+
+def _walked_chunks(s: dict):
+    """Walk the captured render chunk by chunk. Yields per chunk
+    (rec, valid [T, K], alpha [T, PIX, K] (0 where rejected), alive
+    [T, PIX, K]: the pixel evaluates the fragment, i.e. every earlier one it
+    took kept it above the stop threshold, contrib [T, PIX, K])."""
+    cb = s["cb"]
+    num_tiles = cb.tile_starts.shape[0]
+    px, py = TK._pixel_coords(s["off"], num_tiles, s["tx"])
+    log_t = torch.zeros((num_tiles, TK.PIX), device=px.device)
+    for _, valid, rec in TK._chunks(s["records"], cb.tile_starts,
+                                    cb.tile_counts):
+        alpha = TK._chunk_alpha(rec, px, py, valid)[4]
+        alive0 = log_t >= TK.LOG_T_EPS
+        contrib, _, _, log_t = TK._walk(alpha, log_t)
+        alive = torch.cat([alive0[:, :, None], contrib[:, :, :-1]], dim=2)
+        yield (rec, valid, alpha, alive & valid[:, None, :],
+               contrib & (alpha > 0))
+
+
 @torch.no_grad()
 def needed_pairs(s: dict) -> tuple[int, int]:
     """(contributing, skipped): the (pixel, fragment) pairs the compositor
     must evaluate on this data — each pixel's fragments up to and including
     the one that stops it — split into those that add to the pixel and
     those it rejects (sigma < 0, alpha < 1/255, or the stopping one)."""
-    cb = s["cb"]
-    num_tiles = cb.tile_starts.shape[0]
-    px, py = TK._pixel_coords(s["off"], num_tiles, s["tx"])
-    log_t = torch.zeros((num_tiles, TK.PIX), device=px.device)
     evaluated = contributing = 0
-    for _, valid, rec in TK._chunks(s["records"], cb.tile_starts,
-                                    cb.tile_counts):
-        alpha = TK._chunk_alpha(rec, px, py, valid)[4]
-        alive0 = log_t >= TK.LOG_T_EPS
-        contrib, _, _, log_t = TK._walk(alpha, log_t)
-        # a pixel evaluates fragment k while every earlier one contributed
-        alive = torch.cat([alive0[:, :, None], contrib[:, :, :-1]], dim=2)
-        evaluated += int((alive & valid[:, None, :]).sum())
-        contributing += int((contrib & (alpha > 0)).sum())
+    for _, _, _, alive, contrib in _walked_chunks(s):
+        evaluated += int(alive.sum())
+        contributing += int(contrib.sum())
     return contributing, evaluated - contributing
+
+
+def _any_per_warp(x: torch.Tensor, shape: str) -> torch.Tensor:
+    """[T, PIX, K] bool -> [T, 8, K]: true where any pixel of the warp is."""
+    w, h = TK.WARP_SHAPES[shape]
+    t, _, k = x.shape
+    x = x.reshape(t, TK.TILE // h, h, TK.TILE // w, w, k)
+    return x.any(dim=4).any(dim=2).reshape(t, TK.NUM_WARPS, k)
+
+
+@torch.no_grad()
+def walk_stats(s: dict) -> dict:
+    """What a one-block-per-tile, one-warp-per-rectangle walk of this data
+    costs at warp granularity. `tile_counts` / `tile_walked`: mean, p50, p99
+    and max of the tiles' range lengths and of the fragments a tile walks
+    before all its pixels have stopped (the heaviest is the floor of a
+    block's serial walk). For each warp shape of `TK.WARP_SHAPES`, counts of
+    (warp, fragment) pairs: `block_walk` all warps walk while any pixel of
+    the TILE is alive (no warp-level exit or cull), `evaluates` some lane
+    evaluates the pair, `passes` some lane's alpha test passes (it
+    contributes or stops there), `contributes` some lane contributes,
+    `kept` some lane evaluates and the conservative cull keeps the pair;
+    and `kept_lanes`, the (pixel, fragment) pairs a pixel evaluates inside
+    the kept pairs: what a culled walk still has to evaluate lane by lane."""
+    cb = s["cb"]
+    names = ("block_walk", "evaluates", "passes", "contributes", "kept",
+             "kept_lanes")
+    pairs = {shape: dict.fromkeys(names, 0) for shape in TK.WARP_SHAPES}
+    walked = torch.zeros_like(cb.tile_counts, dtype=torch.int64)
+    for rec, _, alpha, alive, contrib in _walked_chunks(s):
+        tile_alive = alive.any(dim=1)                       # [T, K]
+        walked += tile_alive.sum(dim=1)
+        for shape, n in pairs.items():
+            ev = _any_per_warp(alive, shape)
+            keep = TK.warp_cull_keep_plain(rec, s["off"], s["tx"], shape)
+            n["block_walk"] += TK.NUM_WARPS * int(tile_alive.sum())
+            n["evaluates"] += int(ev.sum())
+            n["passes"] += int(_any_per_warp(alive & (alpha > 0), shape).sum())
+            n["contributes"] += int(_any_per_warp(contrib, shape).sum())
+            n["kept"] += int((ev & keep).sum())
+            warp_of = TK.warp_of_pixel(shape).to(keep.device)
+            n["kept_lanes"] += int((alive & keep[:, warp_of, :]).sum())
+
+    def dist(x):
+        x = x.to(torch.float64)
+        return {"mean": float(x.mean()), "p50": float(x.quantile(0.5)),
+                "p99": float(x.quantile(0.99)), "max": float(x.max())}
+
+    return {"tile_counts": dist(cb.tile_counts), "tile_walked": dist(walked),
+            "warp_pairs": pairs}

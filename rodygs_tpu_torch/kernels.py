@@ -5,7 +5,8 @@ library with a plain C interface, loaded through `ctypes` (pointers from
 `Tensor.data_ptr()`, the stream from `torch.cuda.current_stream()`). The
 libraries are built from the sources at first use, all `nvcc` processes
 started together, into `rodygs_tpu_torch/_build/` (listed in .gitignore),
-keyed by a hash of the source and flags so an edited source rebuilds.
+keyed by a hash of the source, the headers and the flags so an edited
+source rebuilds.
 
 Nothing here runs at import: the CPU tests import every module, so an
 import must need neither `nvcc` nor a card.
@@ -44,12 +45,13 @@ _SIGNATURES = {
                # rows_mode, key, rec, stream
                (_P, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P)),
     "tile_fwd": ("rodygs_tile_fwd",
-                 # records, P, starts, counts, offset, T, tiles_x, out, stream
-                 (_P, _I, _P, _P, _P, _I, _I, _P, _P)),
+                 # records, P, starts, counts, offset, T, tiles_x, normals,
+                 # out, stream
+                 (_P, _I, _P, _P, _P, _I, _I, _I, _P, _P)),
     "tile_bwd": ("rodygs_tile_bwd",
-                 # records, P, starts, counts, offset, T, tiles_x, out, gout,
-                 # d_records, stream
-                 (_P, _I, _P, _P, _P, _I, _I, _P, _P, _P, _P)),
+                 # records, P, starts, counts, offset, T, tiles_x, normals,
+                 # out, gout, d_records, stream
+                 (_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P)),
     "segsum": ("rodygs_segsum",
                # d, n_rows, C, off_row, nw, f_kept, out, stream
                (_P, _I, _I, _P, _I, _P, _P, _P)),
@@ -77,15 +79,17 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    headers = b"".join(p.read_bytes() for p in sorted(_CSRC.glob("*.cuh")))
     src = (_CSRC / f"{name}.cu").read_bytes()
-    common = (_CSRC / "common.cuh").read_bytes()
-    digest = hashlib.sha256(src + common + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256(src + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def build_all() -> float:
     """Compile every missing kernel library, one nvcc per source, all in
-    parallel. Returns the wall seconds spent; raises on any failure."""
+    parallel. Returns the wall seconds spent; raises on any failure. The
+    compiler's output (ptxas -v: registers, shared memory, spills) is kept
+    in BUILD_LOG."""
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -111,32 +115,42 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
-def _lib(name: str):
-    fn = _libs.get(name)
-    if fn is None:
+def _cdll(name: str) -> ctypes.CDLL:
+    lib = _libs.get(name)
+    if lib is None:
         path = _lib_path(name)
         if not path.exists():
             build_all()
-        lib = ctypes.CDLL(str(path))
+        lib = _libs[name] = ctypes.CDLL(str(path))
         sym, argtypes = _SIGNATURES[name]
         fn = getattr(lib, sym)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
-        _libs[name] = fn
-    return fn
+    return lib
 
 
 def launch(name: str, *args) -> None:
     """Launch kernel `name` on the current stream with C arguments `args`
     (tensors are passed by data pointer, ints as int). Raises if the launch
     reports an error; counts the launch."""
-    fn = _lib(name)
+    fn = getattr(_cdll(name), _SIGNATURES[name][0])
     c_args = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
-    stream = torch.cuda.current_stream().cuda_stream
-    err = fn(*c_args, stream)
+    err = fn(*c_args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
     LAUNCHES[name] += 1
+
+
+def blocks_per_sm(name: str, include_normal: bool) -> int:
+    """Resident blocks per SM of a tile kernel's instantiation, as the CUDA
+    runtime counts them from its registers, its static and dynamic shared
+    memory and its threads."""
+    fn = getattr(_cdll(name), f"{_SIGNATURES[name][0]}_blocks_per_sm")
+    fn.argtypes, fn.restype = (_I,), ctypes.c_int
+    blocks = fn(int(include_normal))
+    if blocks < 0:
+        raise RuntimeError(f"occupancy query of {name} failed: error {-blocks}")
+    return blocks
 
 
 def check_cuda(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int) -> None:

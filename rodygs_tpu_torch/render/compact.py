@@ -559,7 +559,7 @@ class _CompositeCompact(torch.autograd.Function):
         perm, rows = sort_fragments(key, rec)
         records = stack_records(rows)
         out = rasterize_fwd_impl(records, tile_starts, tile_counts,
-                                 tile_id_offset, tiles_x)
+                                 tile_id_offset, tiles_x, include_normal)
         ctx.save_for_backward(records, perm, tile_starts, tile_counts,
                               tile_id_offset, table.detach(), f_kept, out)
         ctx.tiles_x = tiles_x
@@ -574,7 +574,8 @@ class _CompositeCompact(torch.autograd.Function):
          f_kept, out) = ctx.saved_tensors
         d_records = rasterize_bwd_impl(records, tile_starts, tile_counts,
                                        tile_id_offset, out,
-                                       gout.contiguous(), ctx.tiles_x)
+                                       gout.contiguous(), ctx.tiles_x,
+                                       ctx.n_rows == NUM_REC_ROWS)
         n_rows = ctx.n_rows
         # exact inverse-permutation scatter back to presort order
         d_presort = torch.empty((n_rows, perm.shape[0]), dtype=torch.float32,

@@ -167,25 +167,56 @@ def test_expand_plain_matches_pallas(stages):
                                   np.asarray(s["rec"])[:, valid])
 
 
-def test_tile_fwd_plain_matches_pallas(stages):
+def _tile_inputs(s, include_normal):
+    """Torch tile-kernel arguments of the stages; without normals the
+    records' normal rows are zeroed, which is what the flag promises."""
+    records = np.array(s["records"])
+    if not include_normal:
+        records[10:13] = 0.0
+    return records, (T(records), T(s["cb"].tile_starts),
+                     T(s["cb"].tile_counts), T(s["off"]))
+
+
+@pytest.mark.parametrize("include_normal", [True, False])
+def test_tile_fwd_plain_matches_pallas(stages, include_normal):
     s = stages
-    out = ttk.rasterize_fwd_impl(T(s["records"]), T(s["cb"].tile_starts),
-                                 T(s["cb"].tile_counts), T(s["off"]), s["tx"])
-    ref = np.asarray(s["out"])
+    records, args = _tile_inputs(s, include_normal)
+    out = ttk.rasterize_fwd_impl(*args, s["tx"], include_normal)
+    ref = np.asarray(s["out"]) if include_normal else np.asarray(
+        jtk.rasterize_fwd_impl(jnp.asarray(records), s["cb"].tile_starts,
+                               s["cb"].tile_counts, s["off"], s["tx"]))
     for ch, tol in [(slice(0, 3), IMG_TOL), (slice(3, 7), DEPTH_TOL),
                     (slice(7, 8), IMG_TOL)]:
         np.testing.assert_allclose(out.numpy()[:, ch], ref[:, ch], atol=tol)
+    if not include_normal:
+        # the 5-channel walk is the 8-channel walk on zero normal rows
+        assert torch.equal(out, ttk.rasterize_fwd_impl(*args, s["tx"], True))
+        assert not out[:, 4:7].any()
 
 
-def test_tile_bwd_plain_matches_pallas(stages):
+@pytest.mark.parametrize("include_normal", [True, False])
+def test_tile_bwd_plain_matches_pallas(stages, include_normal):
     s = stages
-    d_rec = ttk.rasterize_bwd_impl(
-        T(s["records"]), T(s["cb"].tile_starts), T(s["cb"].tile_counts),
-        T(s["off"]), T(s["out"]), T(s["gout"]), s["tx"])
-    ref = np.asarray(s["d_rec"])
+    records, args = _tile_inputs(s, include_normal)
+    out = ttk.rasterize_fwd_impl(*args, s["tx"], include_normal)
+    d_rec = ttk.rasterize_bwd_impl(*args, out, T(s["gout"]), s["tx"],
+                                   include_normal)
+    ref = np.asarray(s["d_rec"]) if include_normal else np.asarray(
+        jtk.rasterize_bwd_impl(jnp.asarray(records), s["cb"].tile_starts,
+                               s["cb"].tile_counts, s["off"],
+                               jnp.asarray(out.numpy()),
+                               jnp.asarray(s["gout"]), s["tx"]))
+    # without normals the gradient of the (zero) normal rows is not formed:
+    # the caller drops those rows
     for r in range(14):
-        assert_scaled(ref[r], d_rec.numpy()[r], name=f"row {r}")
+        if include_normal or r not in (10, 11, 12):
+            assert_scaled(ref[r], d_rec.numpy()[r], name=f"row {r}")
     assert not d_rec.numpy()[14:].any()
+    if not include_normal:
+        full = ttk.rasterize_bwd_impl(*args, out, T(s["gout"]), s["tx"], True)
+        live = [r for r in range(16) if r not in (10, 11, 12)]
+        assert torch.equal(d_rec[live], full[live])
+        assert not d_rec[10:13].any()
 
 
 def test_segsum_plain_matches_pallas(stages):
