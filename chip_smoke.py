@@ -4,10 +4,11 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase is caught and skipped):
-  1. build   — compile the four CUDA kernels of rodygs_tpu_torch/csrc from
-               source (one nvcc per file, in parallel); print the seconds,
-               ptxas's registers and shared memory, and the blocks of each
-               tile kernel that one SM holds (the CUDA runtime's count).
+  1. build   — compile the four CUDA kernels of rodygs_tpu_torch/csrc (and
+               the empty kernel of launch_floor.cu) from source (one nvcc
+               per file, in parallel); print the seconds, ptxas's registers
+               and shared memory, and the blocks of every kernel's
+               instantiations that one SM holds (the CUDA runtime's count).
   2. check   — on a 128x128, 5k-gaussian render's own binning (tight=True
                and tight="rows"), hold every kernel against its plain
                PyTorch version on the card, and a full CUDA render against
@@ -17,7 +18,10 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
                0, 32, 33, 64, 65 and 2,100 fragments (batch edges), the
                second half of the tile grid under tile_id_offset = T/2,
                both include_normal settings, and the backward twice on the
-               same inputs for equal bits.
+               same inputs for equal bits. segsum runs twice for equal bits
+               wherever it is checked. A render and its gradients with
+               every record that expand leaves unwritten set to NaN must
+               give the bits of the unpoisoned render.
   3. train   — the bench.py workload through the port's public entry
                points: 512x512, 100k points in a 131,072-slot store, SH 3,
                8 frames, L1 0.8 + D-SSIM 0.2, camera lr 1e-5 / 1e-6, 200
@@ -30,14 +34,31 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
                every kernel launched and the capacity profile kept 1 band.
                Prints step_ms (median of the last 10 synchronised steps),
                the spread of the last 50, and Mpix/s.
-  4. profile — torch.profiler over 5 more steps: device time by kernel
-               and the device's busy share of the wall time.
+  4. profile — torch.profiler over 5 more steps: device time by kernel,
+               the device's busy share of the wall time, and the device
+               time of the fragment-scale PyTorch operations around the
+               four kernels (sort, record gather, stack_records, unsort
+               scatter, tile_bwd's zero fill), found by their shapes.
   5. time    — each kernel, its plain version and (segsum) the one-call
-               library equivalent `index_add_`, timed with CUDA events at
-               the shapes of the trained state's render; the least time
-               (bound) from the bytes and operations of this run's inputs;
-               the tile-count distribution and the (warp, fragment) pair
-               counts of that render (`kernel_check.walk_stats`).
+               library equivalent `index_add_`, timed at the shapes of the
+               trained state's render; the least time (bound) from the
+               bytes and operations of this run's inputs; the tile-count
+               distribution and the (warp, fragment) pair counts of that
+               render (`kernel_check.walk_stats`) and its slot ranges
+               (`kernel_check.slot_stats`). expand, segsum, `index_add_`
+               and the empty kernel are read twice: warm (`graph_ms`: a
+               CUDA graph of 20 launches replayed back to back, no host in
+               between, inputs and outputs resident in the 50 MB L2) and
+               cold (`cold_ms`: a 256 MB buffer overwritten before every
+               launch, events around the one launch). The train step lies
+               between the two: expand's table and segsum's rows were
+               written just before by kernels that move more than the L2
+               holds.
+  5b. 1080p  — one captured 1920x1080 render of 240,000 seeded gaussians in
+               rows mode (8,160 tiles, 40-row table): expand and segsum
+               against their plain versions, slot ranges, warm and cold
+               times and bounds. The tile kernels' plain versions are not
+               run at this size.
   6. report  — the card's name and power limit (nvidia-smi), one JSON line
                of per-kernel numbers, and last {"ok": true, "device": ...}.
 
@@ -87,6 +108,9 @@ CULL_OPS_PER_TEST = 93
 FWD_OPS_PER_CONTRIB = {True: 38, False: 31}
 BWD_OPS_PER_CONTRIB = {True: 89, False: 76}
 
+# threads of a block of the fragment kernels (one block per 512-slot chunk)
+FRAGMENT_BLOCK_THREADS = {"expand": 512, "segsum": 256}
+
 SOURCES = {
     "expand": ("rodygs_tpu_torch/csrc/expand.cu",
                "rodygs_tpu/render/compact.py:769"),
@@ -132,6 +156,60 @@ def time_ms(fn, reps=20):
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, group=20, replays=11):
+    """Device time of one call of `fn`, warm: `group` calls captured into a
+    CUDA graph, the graph replayed back to back with events around each
+    replay; the median replay over `group`. No host work lies between the
+    launches, so a kernel of a few microseconds is not timed by the speed
+    of its Python wrapper; what it reads and writes stays in the L2."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(group):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(replays)]
+    for start, end in pairs:
+        start.record()
+        graph.replay()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs])) / group
+
+
+_FLUSH = {}
+
+
+def cold_ms(fn, reps=51):
+    """Device time of one call of `fn`, cold: before every call a 256 MB
+    buffer (five times the L2) is overwritten four times, which also keeps
+    the device busy (~0.35 ms) while the host enqueues the call, then events
+    around the one call; the median of `reps`. Two events around nothing
+    read `cold_ms(lambda: None)`; the empty kernel's reading is the floor."""
+    import torch
+
+    if "buf" not in _FLUSH:
+        _FLUSH["buf"] = torch.empty(64 * 2**20, dtype=torch.float32,
+                                    device="cuda")
+    buf = _FLUSH["buf"]
+    fn()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    for n, (start, end) in enumerate(pairs):
+        for _ in range(4):
+            buf.fill_(float(n))
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return float(np.median([a.elapsed_time(b) for a, b in pairs]))
+
+
 def bound(bytes_moved, ops):
     t_bytes = bytes_moved / PEAK_BYTES_PER_S * 1e3
     t_ops = ops / PEAK_FP32_FLOPS * 1e3
@@ -154,17 +232,109 @@ def rejected_ops(contrib, rejected, warp_pairs):
     return counts[walk]
 
 
+def time_fragment_kernels(s, tag):
+    """expand and segsum on one captured render: {kernel: dict(ms (warm),
+    cold_ms, plain_ms, library_ms, library_cold_ms, bound_ms, bound_by)}.
+    The bounds count what this render's data needs. expand: the key of
+    every slot, the emitted record rows of the filled slots, and of the
+    columns that own a filled slot the record rows, the four aux rows and,
+    in rows mode, the mode flag and for a row-mode column its 16 span
+    words. segsum: the summed rows of the filled slots, the offsets row,
+    the output."""
+    import torch
+    from rodygs_tpu_torch import kernel_check as KC
+    from rodygs_tpu_torch.render import compact as C
+
+    cb = s["cb"]
+    tab, bases, fk = s["table"], cb.bases, cb.f_kept
+    d = s["d_presort"]
+    n_rows, nw = d.shape[0], tab.shape[1]
+    st = KC.slot_stats(s)
+    cap, n_kept = st["capacity"], st["f_kept"]
+    log(f"[{tag}] slots: C={cap} f_kept={n_kept} "
+        f"({100 * n_kept / cap:.1f}% filled), chunks filled "
+        f"{st['filled_chunks']} of {st['chunks']}, columns owning a filled "
+        f"slot {st['owning_columns']} of {st['table_columns']}; slots per "
+        f"owning gaussian " + " ".join(
+            f"{k}={v:.1f}" for k, v in st["slots_per_gaussian"].items())
+        + f"; share of filled slots in ranges > 32: "
+        f"{100 * st['share_over_32']:.2f}%, > 512: "
+        f"{100 * st['share_over_512']:.2f}%; ranges crossing a chunk edge "
+        f"{st['cross_chunk']}")
+    rows_mode = tab.shape[0] >= C.NUM_TABLE_ROWS_RMODE
+    owning = torch.diff(torch.clamp(tab[C.ROW_OFF], max=float(n_kept)),
+                        append=tab.new_tensor([float(n_kept)])) > 0
+    col_words = (n_rows + 4) * st["owning_columns"]
+    if rows_mode:
+        col_words += st["owning_columns"] + 2 * C.ROW_SPAN_MAX * int(
+            (owning & (tab[C.ROW_RMODE] > 0.5)).sum())
+    res = {}
+
+    def both(fn):
+        return graph_ms(fn), cold_ms(fn)
+
+    b, by = bound(4 * (cap + n_rows * n_kept + col_words
+                       + st["filled_chunks"] + 1), 0)
+    b_all, _ = bound(tab.numel() * 4 + bases.numel() * 4 + cap * 4 * 14, 0)
+    warm, cold = both(lambda: C.expand_fragments(tab, bases, fk, s["tx"],
+                                                 s["db"], n_rows))
+    res["expand"] = dict(
+        ms=warm, cold_ms=cold,
+        plain_ms=time_ms(lambda: C.expand_fragments_plain(
+            tab, bases, fk, s["tx"], s["db"], n_rows), reps=3),
+        library_ms=None, library_cold_ms=None, bound_ms=b, bound_by=by)
+    log(f"[{tag}] expand bound: {b:.4f} ms for what this render needs "
+        f"({n_rows} rows of {n_kept} slots, {col_words} table words); every "
+        f"slot's 13 rows and the whole table, as counted before: "
+        f"{b_all:.4f} ms")
+
+    # segsum reads only the f_kept filled slots; so does the library call
+    d_kept = d[:, :n_kept]
+    owner = torch.searchsorted(
+        tab[C.ROW_OFF], torch.arange(n_kept, device=d.device,
+                                     dtype=torch.float32), right=True) - 1
+    b, by = bound(n_rows * n_kept * 4 + nw * 4 + n_rows * nw * 4,
+                  n_rows * n_kept)
+    warm, cold = both(lambda: C.segment_sum_rows(d, tab, bases, fk))
+    lib = lambda: torch.zeros((n_rows, nw), device=d.device).index_add_(
+        1, owner, d_kept)
+    lib_warm, lib_cold = both(lib)
+    res["segsum"] = dict(
+        ms=warm, cold_ms=cold,
+        plain_ms=time_ms(lambda: C.segment_sum_rows_plain(d, tab, fk), reps=5),
+        library_ms=lib_warm, library_cold_ms=lib_cold, bound_ms=b, bound_by=by)
+    for name, t in res.items():
+        log(f"[{tag}] {name}: warm {t['ms']:.4f} ms, cold {t['cold_ms']:.4f} "
+            f"ms, plain {t['plain_ms']:.4f} ms, library warm "
+            f"{t['library_ms']} cold {t['library_cold_ms']}, bound "
+            f"{t['bound_ms']:.4f} ms ({t['bound_by']})")
+    return res
+
+
+def launch_floors():
+    """The empty kernel through both timers, at the grids of the two
+    fragment kernels, and the cold timer around nothing."""
+    from rodygs_tpu_torch import kernels
+
+    for blocks, threads in ((1, 32), (1536, 512)):
+        fn = lambda: kernels.launch("launch_floor", blocks, threads)
+        log(f"[time] empty kernel <<<{blocks}, {threads}>>>: warm "
+            f"{graph_ms(fn):.4f} ms, cold {cold_ms(fn):.4f} ms")
+    log(f"[time] the cold timer's two events around no launch: "
+        f"{cold_ms(lambda: None):.4f} ms")
+
+
 def time_kernels(s):
-    """{kernel: dict(ms, plain_ms, library_ms, bound_ms, bound_by)}."""
+    """{kernel: dict(ms, plain_ms, library_ms, bound_ms, bound_by)}; the
+    fragment kernels also cold_ms and library_cold_ms."""
     import torch
     from rodygs_tpu_torch import kernel_check as KC
     from rodygs_tpu_torch.render import compact as C
     from rodygs_tpu_torch.render import tile_kernel as TK
 
     cb = s["cb"]
-    tab, bases, fk = s["table"], cb.bases, cb.f_kept
-    cap = bases.shape[0] * C.FCHUNK
-    n_kept = int(fk)
+    cap = cb.bases.shape[0] * C.FCHUNK
+    n_kept = int(cb.f_kept)
     args = (s["records"], cb.tile_starts, cb.tile_counts, s["off"])
     normals = s["include_normal"]
     p_cols = s["records"].shape[1]
@@ -179,21 +349,9 @@ def time_kernels(s):
     contrib, rejected = KC.needed_pairs(s)
     stats = KC.walk_stats(s)
     ops_rejected = rejected_ops(contrib, rejected, stats["warp_pairs"])
-    d = s["d_presort"]
-    n_rows, nw = d.shape[0], tab.shape[1]
-    # segsum reads only the f_kept filled slots; so does the library call
-    d_kept = d[:, :n_kept]
-    owner = torch.searchsorted(
-        tab[C.ROW_OFF], torch.arange(n_kept, device=d.device,
-                                     dtype=torch.float32), right=True) - 1
-    res = {}
+    launch_floors()
+    res = time_fragment_kernels(s, "time")
 
-    b, by = bound(tab.numel() * 4 + bases.numel() * 4 + cap * 4 * 14, 0)
-    res["expand"] = dict(
-        ms=time_ms(lambda: C.expand_fragments(tab, bases, fk, s["tx"], s["db"])),
-        plain_ms=time_ms(lambda: C.expand_fragments_plain(
-            tab, bases, fk, s["tx"], s["db"]), reps=3),
-        library_ms=None, bound_ms=b, bound_by=by)
     # forward: all 8 planes are written; backward: the live planes of O and
     # g are read and all 16 rows of d_records written
     b, by = bound(rec_bytes + 8 * plane_bytes,
@@ -216,7 +374,8 @@ def time_kernels(s):
     heavy = int(cb.tile_counts.argmax())
     h_args = (s["records"], cb.tile_starts[heavy:heavy + 1].contiguous(),
               cb.tile_counts[heavy:heavy + 1].contiguous(),
-              torch.tensor([heavy], dtype=torch.int32, device=d.device))
+              torch.tensor([heavy], dtype=torch.int32,
+                           device=s["records"].device))
     h_out = s["out"][heavy:heavy + 1].contiguous()
     h_gout = s["gout"][heavy:heavy + 1].contiguous()
     log(f"[time] heaviest tile alone ({int(cb.tile_counts[heavy])} "
@@ -227,14 +386,6 @@ def time_kernels(s):
         f" ms (with its zero fill)")
     log(f"[time] zero fill of d_records [16, {p_cols}] inside tile_bwd's "
         f"wrapper: {time_ms(lambda: torch.zeros_like(s['records'])):.4f} ms")
-    b, by = bound(n_rows * n_kept * 4 + nw * 4 + n_rows * nw * 4,
-                  n_rows * n_kept)
-    res["segsum"] = dict(
-        ms=time_ms(lambda: C.segment_sum_rows(d, tab, fk)),
-        plain_ms=time_ms(lambda: C.segment_sum_rows_plain(d, tab, fk), reps=5),
-        library_ms=time_ms(lambda: torch.zeros(
-            (n_rows, nw), device=d.device).index_add_(1, owner, d_kept)),
-        bound_ms=b, bound_by=by)
     log(f"[time] C={cap} P={p_cols} tiles={num_tiles} f_kept={n_kept} "
         f"include_normal={normals} pairs: contributing={contrib} "
         f"rejected={rejected}")
@@ -250,8 +401,8 @@ def time_kernels(s):
 
 def occupancy_lines(build_log):
     """ptxas's register, spill and shared-memory lines of every kernel, and
-    the blocks of each tile kernel one SM holds: the runtime's count from
-    registers, static and dynamic shared memory and threads."""
+    the blocks of each kernel's instantiations one SM holds: the runtime's
+    count from registers, static and dynamic shared memory and threads."""
     from rodygs_tpu_torch import kernels
 
     lines = []
@@ -269,6 +420,16 @@ def occupancy_lines(build_log):
             require(blocks > 0, f"{name} does not fit an SM")
             lines.append(f"[build] {name} include_normal={normals}: {blocks} "
                          f"resident blocks of 256 threads per SM")
+    variants = [("expand", 2 * rows + wide, f"rows_mode={bool(rows)} "
+                 f"n_rows={13 if wide else 10}")
+                for rows in (0, 1) for wide in (0, 1)]
+    variants += [("segsum", wide, f"n_rows={13 if wide else 10}")
+                 for wide in (0, 1)]
+    for name, variant, text in variants:
+        blocks = kernels.blocks_per_sm(name, variant)
+        require(blocks > 0, f"{name} does not fit an SM")
+        lines.append(f"[build] {name} {text}: {blocks} resident blocks of "
+                     f"{FRAGMENT_BLOCK_THREADS[name]} threads per SM")
     return lines
 
 
@@ -349,7 +510,52 @@ def phase_check(device):
         tol = 2e-4 if k == "rendered_depth" else 1e-4
         log(f"[check] render cuda vs cpu {k}: max_abs_err={e:.3g} (tol {tol})")
         require(math.isfinite(e) and e <= tol, f"render {k} differs: {e}")
+
+    # nothing reads the records expand leaves unwritten: NaN there gives
+    # the same render and the same gradients, bit for bit
+    def render_and_grads():
+        leaves = [x.detach().clone().requires_grad_(True) for x in params]
+        p = type(params)(*leaves)
+        out = render(*args(p), cam, 3, 128, 128)
+        (out["rendered_image"].square().mean()
+         + out["rendered_depth"].mean()).backward()
+        return [out["rendered_image"].detach(),
+                out["rendered_depth"].detach()] + [x.grad for x in leaves]
+
+    clean = render_and_grads()
+    with KC.poisoned_expand():
+        poisoned = render_and_grads()
+    require(all(torch.isfinite(x).all() for x in clean),
+            "render or gradients not finite")
+    require(all(torch.equal(a, b) for a, b in zip(clean, poisoned)),
+            "NaN in the records expand leaves unwritten changed the render "
+            "or its gradients")
+    log("[check] records of empty slots poisoned with NaN: render and "
+        f"{len(clean) - 2} gradients keep their bits")
     return errs
+
+
+def phase_1080p(device, n=240_000, width=1920, height=1080):
+    """expand and segsum on a 1920x1080 rows-mode render of n seeded
+    gaussians: checked against their plain versions and timed. Returns
+    ({kernel: max_abs_err}, {kernel: timings})."""
+    import torch
+    from rodygs_tpu_torch import kernel_check as KC
+
+    params, cam = KC.random_scene(n, 5, device, log_scale=(-5.6, -4.2))
+    s = KC.capture_stages(params, None, cam, 3, width, height, "lean", "rows",
+                          3)
+    cb = s["cb"]
+    log(f"[1080p] {width}x{height} n={n} tight='rows' tiles="
+        f"{cb.tile_starts.shape[0]} table rows={s['table'].shape[0]} "
+        f"fragments={int(cb.num_fragments)} dropped={int(cb.dropped)}")
+    require(s["table"].shape[0] == 40, "not the rows-mode table")
+    errs = KC.check_stages(s, tiles=False)
+    log(f"[1080p] max_abs_err={errs}; segsum twice: equal bits")
+    timings = time_fragment_kernels(s, "1080p")
+    del s
+    torch.cuda.empty_cache()
+    return errs, timings
 
 
 def bench_trainer(device, size=512, N=100_000, capacity=131072):
@@ -468,14 +674,46 @@ def phase_train(device, iterations=200, **scene):
     return trainer, batch_for, launches, iterations
 
 
-def phase_profile(trainer, batch_for, first_iteration, steps=5):
+def fragment_op(name, shapes, cap):
+    """Which fragment-scale step of `composite_compact` an operator with
+    these input shapes belongs to, or None: the operators that touch a
+    [*, capacity] tensor between the four kernels."""
+    def dims(x):
+        if isinstance(x, (list, tuple)):
+            if x and all(isinstance(v, int) for v in x):
+                yield tuple(x)
+            else:
+                for v in x:
+                    yield from dims(v)
+
+    shaped = [d for d in dims(shapes) if d and d[-1] == cap]
+    if not shaped:
+        return None
+    if name.startswith("aten::sort"):
+        return "torch.sort (stable, int32 keys)"
+    if name in ("aten::index_put_", "aten::_index_put_impl_"):
+        return "unsort scatter d_presort[:, perm] = d_records"
+    if name == "aten::index":
+        return "record gather rec[:, perm]"
+    if name == "aten::cat":
+        return "stack_records (cat and its constant rows)"
+    if name == "aten::fill_":
+        if shaped[0][0] == 16:
+            return "zero fill of d_records in tile_bwd's wrapper"
+        return "stack_records (cat and its constant rows)"
+    return f"other: {name}"
+
+
+def phase_profile(trainer, batch_for, first_iteration, cap, steps=5):
     """torch.profiler over a few steps: device time by kernel/op (self
-    time, per step) and the device's busy share of the wall time."""
+    time, per step), the device's busy share of the wall time, and the
+    device time of the fragment-scale operators around the four kernels
+    (`fragment_op`; `cap` is the fragment capacity their shapes carry)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 record_shapes=True) as prof:
         torch.cuda.synchronize()
         t0 = time.perf_counter()   # after the profiler's own start-up
         for it in range(first_iteration, first_iteration + steps):
@@ -496,10 +734,28 @@ def phase_profile(trainer, batch_for, first_iteration, steps=5):
     log(f"[profile] {steps} steps: wall {wall_ms:.3f} ms/step (profiler on), "
         f"device busy {total_ms:.3f} ms/step = "
         f"{100 * total_ms / wall_ms:.1f}% of wall")
-    for e in sorted(events, key=dev_us, reverse=True)[:14]:
+    ours = ("expand_kernel", "tile_fwd_kernel", "tile_bwd_kernel",
+            "segsum_kernel")
+    ranked = sorted(events, key=dev_us, reverse=True)
+    for e in ranked[:14] + [e for e in ranked[14:]
+                            if any(k in e.key for k in ours)]:
         ms = dev_us(e) / 1e3 / steps
         log(f"[profile]   {ms:8.4f} ms/step {100 * ms / total_ms:5.1f}%  "
             f"x{e.count // steps:<4d} {e.key[:90]}")
+    # the operators between the kernels, by the shapes they were called with
+    groups = {}
+    for e in prof.key_averages(group_by_input_shape=True):
+        if e.device_type == torch.autograd.DeviceType.CUDA or dev_us(e) <= 0:
+            continue
+        group = fragment_op(e.key, e.input_shapes, cap)
+        if group is not None:
+            ms, n = groups.get(group, (0.0, 0))
+            groups[group] = (ms + dev_us(e) / 1e3 / steps, n + e.count)
+    require(groups, "the profiler attributed no device time to the "
+                    "fragment-scale operators")
+    for group, (ms, n) in sorted(groups.items(), key=lambda g: -g[1][0]):
+        log(f"[profile]   fragment-scale {ms:8.4f} ms/step x{n // steps:<3d} "
+            f"{group}")
 
 
 def main() -> int:
@@ -527,13 +783,15 @@ def main() -> int:
 
     errs = phase_check(device)
     trainer, batch_for, launches, iterations = phase_train(device)
-    phase_profile(trainer, batch_for, first_iteration=iterations + 1)
-
     from rodygs_tpu_torch import kernel_check as KC
+    from rodygs_tpu_torch.render import compact as C
     from rodygs_tpu_torch.render.rasterize import _default_tight
     from rodygs_tpu_torch.train.trainer_static import make_camera_from_poses
 
     st = trainer.state
+    phase_profile(trainer, batch_for, first_iteration=iterations + 1,
+                  cap=C.fragment_capacity(st.store.params.xyz.shape[0],
+                                          trainer.fragment_profile))
     cam = make_camera_from_poses(st.poses, batch_for(0))
     s = KC.capture_stages(st.store.params, st.store.alive, cam,
                        trainer.active_sh_degree, 512, 512,
@@ -541,6 +799,8 @@ def main() -> int:
     e512 = KC.check_stages(s)
     log(f"[check] 512x512 trained state max_abs_err={e512}")
     timings = time_kernels(s)
+    del s
+    e1080, t1080 = phase_1080p(device)
 
     rows = []
     for name in kernels.KERNELS:
@@ -548,10 +808,15 @@ def main() -> int:
         t = timings[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": max(errs[name], e512[name]),
+                     "max_abs_err": max(errs[name], e512[name],
+                                        e1080.get(name, 0.0)),
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
+        if name in t1080:    # the fragment kernels: cold readings, 1080p
+            rows[-1].update(cold_ms=t["cold_ms"],
+                            library_cold_ms=t["library_cold_ms"],
+                            rows_1080p=t1080[name])
         log(f"[time] {name}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, library {t['library_ms']}, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), launches in "

@@ -6,7 +6,12 @@ seeded random cotangent, unsort), keeping every kernel's inputs and
 outputs; `check_stages` recomputes each kernel's output with its plain
 version on the same inputs and raises `KernelMismatch` past the stated
 tolerance. `check_tiles` does so for the two tile kernels on any ranges,
-`synthetic_tiles` makes ranges of chosen lengths. `needed_pairs` counts the
+`synthetic_tiles` makes ranges of chosen lengths. `check_fragment_kernels`
+holds expand and segsum alone against theirs (segsum twice for equal
+bits), `synthetic_ranges` makes their inputs from chosen slot counts per
+gaussian, `slot_stats` describes the slot ranges both walk, and
+`poisoned_expand` fills every record the expand contract leaves unwritten
+with NaN. `needed_pairs` counts the
 (pixel, fragment) pairs the compositor must evaluate on that data, for the
 kernels' operation bound; `walk_stats` counts the same walk at warp
 granularity. `random_scene` builds the seeded test scene these checks run
@@ -18,6 +23,8 @@ this module testable without a card.
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
@@ -35,8 +42,9 @@ from .render.preprocess import preprocess
 # the plain version takes the kernel's arithmetic in its order, so the
 # stop decisions agree. Tile backward and segsum divided by their max: the
 # 256-pixel sums run as warp trees in the kernel and as torch reductions in
-# the plain version (5e-4, the JAX suite's gradient bar); segsum sums in
-# fp32 in order against a float64 running sum (1e-5).
+# the plain version (5e-4, the JAX suite's gradient bar); segsum sums each
+# range in fp32 (in slot order, a long range by lane strides and a shuffle
+# tree) against a float64 running sum (1e-5).
 TOL_FWD_IMAGE = 2e-5
 TOL_FWD_GEOMETRY = 2e-4
 TOL_BWD_SCALED = 5e-4
@@ -93,9 +101,9 @@ def capture_stages(params: G.GaussianParams, alive, camera, sh_degree: int,
          splats.depth[None], splats.normal], 0), (0, C.padded_width(n) - n))
     table = C.build_table(rec13, cb.aux_rows).contiguous()
     db = C.depth_key_bits(tx, ty)
-    key, rec = C.expand_fragments(table, cb.bases, cb.f_kept, tx, db)
     n_rows = C.NUM_REC_ROWS if include_normal else C.N_CORE_ROWS
-    perm, rows = C.sort_fragments(key, rec[:n_rows])
+    key, rec = C.expand_fragments(table, cb.bases, cb.f_kept, tx, db, n_rows)
+    perm, rows = C.sort_fragments(key, rec)
     records = C.stack_records(rows)
     off = torch.zeros((1,), dtype=torch.int32, device=table.device)
     out = TK.rasterize_fwd_impl(records, cb.tile_starts, cb.tile_counts,
@@ -145,29 +153,109 @@ def check_tiles(records, tile_starts, tile_counts, off, tx: int,
 
 
 @torch.no_grad()
-def check_stages(s: dict) -> dict:
-    """Every kernel's output against its plain version on the captured
-    inputs. Returns {kernel: max_abs_err}; raises KernelMismatch."""
-    cb = s["cb"]
+def check_fragment_kernels(table, bases, f_kept, tx: int, db: int,
+                           d_presort, key=None, rec=None) -> dict:
+    """expand and segsum against their plain versions on these inputs: keys
+    equal in every slot, records equal on the slots that carry a fragment
+    (the rest is left unwritten), segsum within TOL_SEGSUM_SCALED of the
+    plain sums' maximum and, on the card, the same bits from a second run.
+    `key` / `rec` default to a fresh run of the expand wrapper. Returns
+    {"expand": max_abs_err, "segsum": max_abs_err}."""
+    n_rows = d_presort.shape[0]
+    if key is None:
+        key, rec = C.expand_fragments(table, bases, f_kept, tx, db, n_rows)
     errs = {}
-    pkey, prec = C.expand_fragments_plain(s["table"], cb.bases, cb.f_kept,
-                                          s["tx"], s["db"])
-    _require(torch.equal(s["key"], pkey), "expand: keys differ")
+    pkey, prec = C.expand_fragments_plain(table, bases, f_kept, tx, db,
+                                          rec.shape[0])
+    _require(torch.equal(key, pkey), "expand: keys differ")
     valid = pkey != C.INT32_MAX
-    _require(int(valid.sum()) > 0, "expand: no valid fragment")
-    errs["expand"] = float((s["rec"][:, valid] - prec[:, valid]).abs().max())
+    errs["expand"] = 0.0
+    if bool(valid.any()):
+        errs["expand"] = float((rec[:, valid] - prec[:, valid]).abs().max())
     _require(errs["expand"] == 0.0, f"expand: records differ {errs['expand']}")
 
-    errs.update(check_tiles(s["records"], cb.tile_starts, cb.tile_counts,
-                            s["off"], s["tx"], s["include_normal"],
-                            out=s["out"], gout=s["gout"]))
-
-    seg = C.segment_sum_rows(s["d_presort"], s["table"], cb.f_kept)
-    pseg = C.segment_sum_rows_plain(s["d_presort"], s["table"], cb.f_kept)
+    seg = C.segment_sum_rows(d_presort, table, bases, f_kept)
+    if d_presort.is_cuda:   # on the CPU both runs are the plain version
+        again = C.segment_sum_rows(d_presort, table, bases, f_kept)
+        _require(torch.equal(seg, again), "segsum: two runs differ")
+    pseg = C.segment_sum_rows_plain(d_presort, table, f_kept)
+    _require(bool(torch.isfinite(seg).all()), "segsum: non-finite sums")
     errs["segsum"] = float((seg - pseg).abs().max())
     rel = errs["segsum"] / (float(pseg.abs().max()) + 1e-30)
     _require(rel <= TOL_SEGSUM_SCALED, f"segsum: scaled error {rel:.3g}")
     return errs
+
+
+@torch.no_grad()
+def check_stages(s: dict, tiles: bool = True) -> dict:
+    """Every kernel's output against its plain version on the captured
+    inputs; tiles=False leaves the two tile kernels out (their plain
+    versions walk lane by lane and are slow on a large render). Returns
+    {kernel: max_abs_err}; raises KernelMismatch."""
+    cb = s["cb"]
+    _require(int((s["key"] != C.INT32_MAX).sum()) > 0,
+             "expand: no valid fragment")
+    errs = check_fragment_kernels(s["table"], cb.bases, cb.f_kept, s["tx"],
+                                  s["db"], s["d_presort"], key=s["key"],
+                                  rec=s["rec"])
+    if tiles:
+        errs.update(check_tiles(s["records"], cb.tile_starts, cb.tile_counts,
+                                s["off"], s["tx"], s["include_normal"],
+                                out=s["out"], gout=s["gout"]))
+    return errs
+
+
+@contextlib.contextmanager
+def poisoned_expand():
+    """While active, `expand_fragments` is handed a record buffer full of
+    NaN, so every record the kernel leaves unwritten (slots at or past
+    f_kept) is NaN instead of stale memory. A render and its gradients
+    must come out with the same bits: nothing reads those records."""
+    real = C.expand_fragments
+
+    def poisoned(table, bases, f_kept, tiles_x, db, n_rows=C.NUM_REC_ROWS):
+        rec = torch.full((n_rows, bases.shape[0] * C.FCHUNK), float("nan"),
+                         device=table.device)
+        return real(table, bases, f_kept, tiles_x, db, n_rows, rec_out=rec)
+
+    C.expand_fragments = poisoned
+    try:
+        yield
+    finally:
+        C.expand_fragments = real
+
+
+@torch.no_grad()
+def slot_stats(s: dict) -> dict:
+    """The slot ranges of one captured render, as expand and segsum walk
+    them. `slots_per_gaussian`: mean, p50, p99 and max of the range lengths
+    over the gaussians that own a filled slot; `share_over_32` /
+    `share_over_512`: the share of the filled slots that lie in ranges
+    longer than 32 / 512; `cross_chunk`: ranges that cross an edge between
+    two FCHUNK-slot chunks; `owning_columns` of `table_columns`;
+    `filled_chunks` of `chunks`."""
+    cb = s["cb"]
+    cap = cb.bases.shape[0] * C.FCHUNK
+    end = min(int(cb.f_kept), cap)
+    off = s["table"][C.ROW_OFF].to(torch.int64)
+    lo = torch.clamp(off, max=end)
+    hi = torch.clamp(torch.cat([off[1:], off.new_tensor([end])]), max=end)
+    length = (hi - lo)[hi > lo]
+    first, last = lo[hi > lo] // C.FCHUNK, (hi[hi > lo] - 1) // C.FCHUNK
+    x = length.to(torch.float64)
+    filled = max(end, 1)
+    return {
+        "f_kept": end, "capacity": cap,
+        "slots_per_gaussian": {
+            "mean": float(x.mean()), "p50": float(x.quantile(0.5)),
+            "p99": float(x.quantile(0.99)), "max": float(x.max())},
+        "share_over_32": float(length[length > 32].sum()) / filled,
+        "share_over_512": float(length[length > 512].sum()) / filled,
+        "cross_chunk": int((first != last).sum()),
+        "owning_columns": int(length.numel()),
+        "table_columns": int(off.numel()),
+        "filled_chunks": -(-end // C.FCHUNK), "chunks": cb.bases.shape[0],
+    }
 
 
 def synthetic_tiles(counts, seed: int, device, tiles_x: int,
@@ -203,6 +291,49 @@ def synthetic_tiles(counts, seed: int, device, tiles_x: int,
                                     device=device)
     return (torch.tensor(rec, device=device), as_i32(starts), as_i32(counts),
             as_i32([tile_id_offset]))
+
+
+def synthetic_ranges(counts, chunks: int, f_kept: int, seed: int, device,
+                     rows_mode: bool = False, n_rows: int = C.N_CORE_ROWS,
+                     tiles_x: int = 8, tiles_y: int = 8):
+    """Hand-made inputs of expand and segsum: gaussian g owns counts[g] >= 1
+    consecutive slots, the capacity is chunks * FCHUNK (gaussians whose
+    slots lie past it are the dropped ones), f_kept any slot index up to
+    it. Returns (table, bases, f_kept, d_presort, db): the table's offsets
+    row and the chunk windows as `build_binning` lays them out, seeded
+    whole-number aux rows (spans 0..5 wide, half the columns in row mode
+    when `rows_mode`), normal record rows, and normal gradient rows that
+    are NaN at and past f_kept, where nothing may read them."""
+    rng = np.random.default_rng(seed)
+    counts = np.asarray(counts, np.int64)
+    assert counts.min() >= 1
+    n, cap = len(counts), chunks * C.FCHUNK
+    assert 0 <= f_kept <= cap and counts.sum() + n < 2**24
+    nw = C.padded_width(n)
+    off_next = np.cumsum(counts)
+    num_tiles = tiles_x * tiles_y
+    db = C.depth_key_bits(tiles_x, tiles_y)
+    aux = np.zeros((4 + (1 + 2 * C.ROW_SPAN_MAX) * rows_mode, nw), np.float32)
+    aux[0, :n] = rng.integers(0, num_tiles + 1, n)
+    aux[1, :n] = rng.integers(0, 2**db, n)
+    aux[2, :n] = off_next - counts
+    aux[2, n:] = np.arange(nw - n, dtype=np.float32) + C._OFF_PAD
+    aux[3, :n] = rng.integers(0, 6, n)
+    if rows_mode:
+        aux[4, :n] = rng.integers(0, 2, n)
+        spans = rng.integers(0, 6, (C.ROW_SPAN_MAX, n))
+        aux[5:5 + C.ROW_SPAN_MAX, :n] = np.cumsum(spans, axis=0) - spans
+        aux[5 + C.ROW_SPAN_MAX:, :n] = rng.integers(0, tiles_x, spans.shape)
+    rec13 = np.zeros((C.NUM_REC_ROWS, nw), np.float32)
+    rec13[:, :n] = rng.normal(size=(C.NUM_REC_ROWS, n))
+    first_g = np.searchsorted(off_next, np.arange(chunks) * C.FCHUNK,
+                              side="right")
+    bases = np.clip(first_g // 128 * 128, 0, nw - C.WIN).astype(np.int32)
+    d = rng.normal(size=(n_rows, cap)).astype(np.float32)
+    d[:, f_kept:] = np.nan
+    t = lambda a: torch.tensor(a, device=device)
+    return (C.build_table(t(rec13), t(aux)), t(bases),
+            torch.tensor(f_kept, dtype=torch.int32, device=device), t(d), db)
 
 
 def _walked_chunks(s: dict):

@@ -13,7 +13,10 @@ import must need neither `nvcc` nor a card.
 
 `LAUNCHES[name]` counts launches of each kernel; the wrappers in
 render/compact.py and render/tile_kernel.py add one where they launch,
-and nowhere else. `reset_launches()` zeroes them.
+and nowhere else. `reset_launches()` zeroes them. `csrc/launch_floor.cu` is
+no kernel of the renderer: it holds the empty kernel whose time is the floor
+under any few-microsecond kernel (`launch("launch_floor", blocks, threads)`),
+and is not counted.
 """
 
 from __future__ import annotations
@@ -41,9 +44,9 @@ _I = ctypes.c_int
 # returns cudaGetLastError() after its launch.
 _SIGNATURES = {
     "expand": ("rodygs_expand",
-               # table, rows, nw, bases, num_chunks, f_kept, tiles_x, db,
-               # rows_mode, key, rec, stream
-               (_P, _I, _I, _P, _I, _P, _I, _I, _I, _P, _P, _P)),
+               # table, nw, bases, num_chunks, f_kept, tiles_x, db,
+               # rows_mode, n_rows, key, rec, stream
+               (_P, _I, _P, _I, _P, _I, _I, _I, _I, _P, _P, _P)),
     "tile_fwd": ("rodygs_tile_fwd",
                  # records, P, starts, counts, offset, T, tiles_x, normals,
                  # out, stream
@@ -53,10 +56,12 @@ _SIGNATURES = {
                  # out, gout, d_records, stream
                  (_P, _I, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P)),
     "segsum": ("rodygs_segsum",
-               # d, n_rows, C, off_row, nw, f_kept, out, stream
-               (_P, _I, _I, _P, _I, _P, _P, _P)),
+               # d, n_rows, C, off_row, nw, bases, f_kept, out, stream
+               (_P, _I, _I, _P, _I, _P, _P, _P, _P)),
 }
 KERNELS = tuple(_SIGNATURES)
+# blocks, threads, stream: an empty kernel, launched as the others are
+_SIGNATURES["launch_floor"] = ("rodygs_launch_floor", (_I, _I, _P))
 LAUNCHES = {name: 0 for name in KERNELS}
 _libs: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}
@@ -93,7 +98,7 @@ def build_all() -> float:
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in KERNELS:
+    for name in _SIGNATURES:
         out = _lib_path(name)
         if out.exists():
             continue
@@ -138,16 +143,19 @@ def launch(name: str, *args) -> None:
     err = fn(*c_args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed to launch: error {err}")
-    LAUNCHES[name] += 1
+    if name in LAUNCHES:
+        LAUNCHES[name] += 1
 
 
-def blocks_per_sm(name: str, include_normal: bool) -> int:
-    """Resident blocks per SM of a tile kernel's instantiation, as the CUDA
+def blocks_per_sm(name: str, variant: int) -> int:
+    """Resident blocks per SM of one instantiation of a kernel, as the CUDA
     runtime counts them from its registers, its static and dynamic shared
-    memory and its threads."""
+    memory and its threads. `variant` picks the instantiation: the tile
+    kernels' include_normal; expand's 2 * rows_mode + (13 rows emitted);
+    segsum's (13 rows summed)."""
     fn = getattr(_cdll(name), f"{_SIGNATURES[name][0]}_blocks_per_sm")
     fn.argtypes, fn.restype = (_I,), ctypes.c_int
-    blocks = fn(int(include_normal))
+    blocks = fn(int(variant))
     if blocks < 0:
         raise RuntimeError(f"occupancy query of {name} failed: error {-blocks}")
     return blocks

@@ -16,6 +16,9 @@ and the backward
 
 Each kernel wrapper launches its CUDA kernel for CUDA tensors and uses the
 plain PyTorch version beside it only for CPU tensors; there is no fallback.
+expand writes a key for every slot but records only for the slots that
+carry a fragment (`expand_fragments`); segsum writes every output element
+itself, so neither wrapper fills anything beforehand.
 
 Not ported in this module yet: sort bands (`bands > 1`), the bf16 payload
 and the `fwd_records` / `bwd_unsort` variants.
@@ -415,8 +418,11 @@ def build_binning(
 
 
 def expand_fragments_plain(table: torch.Tensor, bases: torch.Tensor,
-                           f_kept: torch.Tensor, tiles_x: int, db: int):
-    """Plain PyTorch version of the expand kernel (same function)."""
+                           f_kept: torch.Tensor, tiles_x: int, db: int,
+                           n_rows: int = NUM_REC_ROWS):
+    """Plain PyTorch version of the expand kernel (same function). It
+    writes every slot's records: a slot without an owner gets zeros, a slot
+    at or past f_kept its window owner's rows."""
     dev = table.device
     capacity = bases.shape[0] * FCHUNK
     i = torch.arange(capacity, dtype=torch.int64, device=dev)
@@ -453,29 +459,55 @@ def expand_fragments_plain(table: torch.Tensor, bases: torch.Tensor,
     packed = ((((tile & 0xFFFFFFFF) << db) & 0xFFFFFFFF) | dbits) ^ 0x80000000
     packed = torch.where(packed >= 2**31, packed - 2**32, packed)
     key = torch.where(valid, packed, INT32_MAX).to(torch.int32)
-    rec = torch.where(none[None], 0.0, cols[:NUM_REC_ROWS])
+    rec = torch.where(none[None], 0.0, cols[:n_rows])
     return key, rec
 
 
 def expand_fragments(table: torch.Tensor, bases: torch.Tensor,
-                     f_kept: torch.Tensor, tiles_x: int, db: int):
+                     f_kept: torch.Tensor, tiles_x: int, db: int,
+                     n_rows: int = NUM_REC_ROWS,
+                     rec_out: torch.Tensor | None = None):
     """table [24 or 40, Nw] f32, bases [C/512] i32, f_kept [] i32 ->
-    (key [C] i32 in biased-u32 order, rec [13, C] presort records).
+    (key [C] i32 in biased-u32 order, rec [n_rows, C] presort records),
+    n_rows = NUM_REC_ROWS (13) or N_CORE_ROWS (10, without the normals).
+
+    The key is exact in every slot: INT32_MAX where the slot carries no
+    fragment. The record of slot i is written only where i < f_kept and the
+    slot has an owner in its chunk's window; every other record column is
+    left as it was (uninitialised memory, or `rec_out` where the caller
+    hands the buffer in). Such slots sort behind every tile range and no
+    kernel reads their records.
+
     Launches the CUDA expand kernel for CUDA tensors; the plain version
     serves CPU tensors only."""
+    if n_rows not in (N_CORE_ROWS, NUM_REC_ROWS):
+        raise ValueError(f"expand emits {N_CORE_ROWS} or {NUM_REC_ROWS} "
+                         f"record rows, not {n_rows}")
+    capacity = bases.shape[0] * FCHUNK
     if not table.is_cuda:
-        return expand_fragments_plain(table, bases, f_kept, tiles_x, db)
+        key, rec = expand_fragments_plain(table, bases, f_kept, tiles_x, db,
+                                          n_rows)
+        if rec_out is not None:
+            filled = torch.arange(capacity) < f_kept
+            rec = torch.where(filled[None], rec, rec_out)
+        return key, rec
     table = table.detach().contiguous()
     kernels.check_cuda(table, "expand table", torch.float32, 2)
     kernels.check_cuda(bases, "expand bases", torch.int32, 1)
     f_kept = f_kept.reshape(1).to(torch.int32).contiguous()
-    capacity = bases.shape[0] * FCHUNK
     key = torch.empty((capacity,), dtype=torch.int32, device=table.device)
-    rec = torch.empty((NUM_REC_ROWS, capacity), dtype=torch.float32,
-                      device=table.device)
-    kernels.launch("expand", table, table.shape[0], table.shape[1], bases,
-                   bases.shape[0], f_kept, tiles_x, db,
-                   int(table.shape[0] >= NUM_TABLE_ROWS_RMODE), key, rec)
+    rec = rec_out
+    if rec is None:
+        rec = torch.empty((n_rows, capacity), dtype=torch.float32,
+                          device=table.device)
+    kernels.check_cuda(rec, "expand records", torch.float32, 2)
+    if rec.shape != (n_rows, capacity):
+        raise ValueError(f"expand records: expected {(n_rows, capacity)}, "
+                         f"got {tuple(rec.shape)}")
+    kernels.launch("expand", table, table.shape[1], bases, bases.shape[0],
+                   f_kept, tiles_x, db,
+                   int(table.shape[0] >= NUM_TABLE_ROWS_RMODE), n_rows, key,
+                   rec)
     return key, rec
 
 
@@ -488,7 +520,8 @@ def segment_sum_rows_plain(d_presort: torch.Tensor, table: torch.Tensor,
                            f_kept: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of the segsum kernel: out[r, g] sums
     d_presort[r, i] over gaussian g's slot range [off[g], off[g+1])
-    clamped to [0, f_kept). Differences of a float64 running sum."""
+    clamped to [0, f_kept). Differences of a float64 running sum; no
+    prefix past f_kept enters, so what lies there does not matter."""
     n_rows, c = d_presort.shape
     end = torch.clamp(f_kept.to(torch.int64), max=c)
     off = table[ROW_OFF].detach().to(torch.int64)
@@ -501,22 +534,32 @@ def segment_sum_rows_plain(d_presort: torch.Tensor, table: torch.Tensor,
 
 
 def segment_sum_rows(d_presort: torch.Tensor, table: torch.Tensor,
-                     f_kept: torch.Tensor) -> torch.Tensor:
+                     bases: torch.Tensor, f_kept: torch.Tensor
+                     ) -> torch.Tensor:
     """d_presort [n_rows, C] f32 (presort order); table: the expand table
-    (only its offsets row is read) -> [n_rows, Nw]. Launches the CUDA
-    segsum kernel for CUDA tensors; the plain version serves CPU tensors
-    only. Slots at or past f_kept must hold zeros (they carry no fragment)."""
+    (only its offsets row is read); bases [C/512] i32: the chunk windows of
+    the same binning -> [n_rows, Nw], every element written (zeros for
+    gaussians without a filled slot and for pad columns). Nothing at or
+    past f_kept is read. Launches the CUDA segsum kernel for CUDA tensors
+    (n_rows 10 or 13); the plain version serves CPU tensors only."""
     if not d_presort.is_cuda:
         return segment_sum_rows_plain(d_presort, table, f_kept)
     d_presort = d_presort.contiguous()
     kernels.check_cuda(d_presort, "segsum rows", torch.float32, 2)
+    kernels.check_cuda(bases, "segsum bases", torch.int32, 1)
+    n_rows, c = d_presort.shape
+    if n_rows not in (N_CORE_ROWS, NUM_REC_ROWS):
+        raise ValueError(f"segsum sums {N_CORE_ROWS} or {NUM_REC_ROWS} rows, "
+                         f"not {n_rows}")
+    if c != bases.shape[0] * FCHUNK:
+        raise ValueError(f"segsum: {c} slots for {bases.shape[0]} chunks")
     off_row = table[ROW_OFF].detach().contiguous()
     f_kept = f_kept.reshape(1).to(torch.int32).contiguous()
-    n_rows, c = d_presort.shape
     nw = off_row.shape[0]
     out = torch.empty((n_rows, nw), dtype=torch.float32,
                       device=d_presort.device)
-    kernels.launch("segsum", d_presort, n_rows, c, off_row, nw, f_kept, out)
+    kernels.launch("segsum", d_presort, n_rows, c, off_row, nw, bases, f_kept,
+                   out)
     return out
 
 
@@ -553,17 +596,17 @@ class _CompositeCompact(torch.autograd.Function):
         from .tile_kernel import rasterize_fwd_impl
 
         db = depth_key_bits(tiles_x, tiles_y)
-        key, rec = expand_fragments(table, bases, f_kept, tiles_x, db)
-        if not include_normal:
-            rec = rec[:N_CORE_ROWS]
+        n_rows = NUM_REC_ROWS if include_normal else N_CORE_ROWS
+        key, rec = expand_fragments(table, bases, f_kept, tiles_x, db, n_rows)
         perm, rows = sort_fragments(key, rec)
         records = stack_records(rows)
         out = rasterize_fwd_impl(records, tile_starts, tile_counts,
                                  tile_id_offset, tiles_x, include_normal)
         ctx.save_for_backward(records, perm, tile_starts, tile_counts,
-                              tile_id_offset, table.detach(), f_kept, out)
+                              tile_id_offset, table.detach(), bases, f_kept,
+                              out)
         ctx.tiles_x = tiles_x
-        ctx.n_rows = rec.shape[0]
+        ctx.n_rows = n_rows
         return out
 
     @staticmethod
@@ -571,7 +614,7 @@ class _CompositeCompact(torch.autograd.Function):
         from .tile_kernel import rasterize_bwd_impl
 
         (records, perm, tile_starts, tile_counts, tile_id_offset, table,
-         f_kept, out) = ctx.saved_tensors
+         bases, f_kept, out) = ctx.saved_tensors
         d_records = rasterize_bwd_impl(records, tile_starts, tile_counts,
                                        tile_id_offset, out,
                                        gout.contiguous(), ctx.tiles_x,
@@ -581,7 +624,7 @@ class _CompositeCompact(torch.autograd.Function):
         d_presort = torch.empty((n_rows, perm.shape[0]), dtype=torch.float32,
                                 device=records.device)
         d_presort[:, perm] = d_records[:n_rows]
-        d_rows = segment_sum_rows(d_presort, table, f_kept)
+        d_rows = segment_sum_rows(d_presort, table, bases, f_kept)
         d_table = torch.cat(
             [d_rows, d_rows.new_zeros((table.shape[0] - n_rows,
                                        d_rows.shape[1]))], dim=0)

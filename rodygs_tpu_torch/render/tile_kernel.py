@@ -58,7 +58,10 @@ def _pixel_coords(tile_id_offset: torch.Tensor, num_tiles: int, tiles_x: int):
 
 def _chunks(records, tile_starts, tile_counts):
     """Yield (column index [T, CHUNK], valid [T, CHUNK], rec [16, T, CHUNK])
-    for each 128-fragment chunk of every tile's range."""
+    for each 128-fragment chunk of every tile's range. Lanes past a range
+    read zeros, not their neighbours' columns: like the kernels, the plain
+    versions take nothing from outside the tile ranges (columns that carry
+    no fragment may hold anything)."""
     p_cols = records.shape[1]
     counts = tile_counts.to(torch.int64)
     max_count = int(counts.max()) if counts.numel() else 0
@@ -68,7 +71,7 @@ def _chunks(records, tile_starts, tile_counts):
         valid = k < counts[:, None]
         idx = torch.clamp(tile_starts.to(torch.int64)[:, None] + k, 0,
                           p_cols - 1)
-        yield idx, valid, records[:, idx]
+        yield idx, valid, torch.where(valid[None], records[:, idx], 0.0)
 
 
 def _chunk_alpha(rec, px, py, valid):

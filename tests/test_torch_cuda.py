@@ -14,7 +14,7 @@ one; the kernels have no CPU mode.
 import numpy as np
 import pytest
 import torch
-from hypothesis import given, settings
+from hypothesis import HealthCheck, given, settings
 from hypothesis import strategies as st
 
 from rodygs_tpu_torch import kernel_check as KC
@@ -207,6 +207,173 @@ def test_warp_cull_is_conservative(seed, where, log_axes, op_ratio, shape):
     assert not (passes & ~keep).any()
 
 
+# Slot counts per gaussian that the fragment kernels' parts fear, as
+# (counts, chunks of 512 slots, f_kept).
+_MIXED = [1] * 40 + [3000] + [2] * 30 + [1, 7, 1, 90, 1] * 20
+RANGE_CASES = {
+    "one_long_segment": (_MIXED, 11, sum(_MIXED)),
+    "runs_of_one_slot": ([1] * 1500, 3, 1500),
+    # the 101st gaussian's last slot is slot 511, the 102nd starts a chunk
+    "segment_ends_on_chunk_edge": ([1] * 100 + [412] + [3] * 170, 2, 1022),
+    "f_kept_zero": (_MIXED, 11, 0),
+    "f_kept_is_capacity": ([5] * 200 + [24], 2, 1024),
+    "f_kept_inside_segment": (_MIXED, 11, 40 + 1700),
+    # 3 chunks hold 1,536 slots: the gaussians from slot 1,100 on are
+    # dropped, some with offsets past the capacity
+    "dropped_past_f_kept": ([1] * 100 + [500] * 2 + [700] + [2] * 300, 3,
+                            1100),
+}
+
+
+def _brute_force_segsum(table, f_kept, d):
+    """Per-gaussian loop over the clamped slot ranges, summed in float64."""
+    off = table[C.ROW_OFF].numpy().astype(np.int64)
+    end = min(int(f_kept), d.shape[1])
+    lo = np.minimum(off, end)
+    hi = np.minimum(np.append(off[1:], end), end)
+    out = np.zeros((d.shape[0], off.shape[0]), np.float64)
+    for g in np.nonzero(hi > lo)[0]:
+        out[:, g] = d[:, lo[g]:hi[g]].numpy().astype(np.float64).sum(axis=1)
+    return out
+
+
+def _assert_segsum_plain(counts, chunks, f_kept, seed):
+    table, _, fk, d, _ = KC.synthetic_ranges(counts, chunks, f_kept, seed,
+                                             "cpu")
+    got = C.segment_sum_rows_plain(d, table, fk).numpy()
+    want = _brute_force_segsum(table, fk, d)
+    assert np.isfinite(got).all()      # the NaN at and past f_kept is not read
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=KC.TOL_SEGSUM_SCALED * max(
+                                   1e-30, np.abs(want).max()))
+    assert (got[:, len(counts):] == 0).all()        # pad columns
+
+
+@pytest.mark.parametrize("case", list(RANGE_CASES))
+def test_segsum_plain_matches_brute_force(case):
+    _assert_segsum_plain(*RANGE_CASES[case], seed=4)
+
+
+@st.composite
+def slot_ranges(draw):
+    """(counts, chunks, f_kept): runs of one-slot gaussians, segments of up
+    to 4,000 slots and segments that end exactly on a chunk edge, a
+    capacity that holds them all or drops the last ones, and f_kept at 0,
+    at the capacity, on a range boundary or inside a range."""
+    counts = []
+    for kind in draw(st.lists(st.sampled_from(["ones", "long", "align"]),
+                              min_size=1, max_size=6)):
+        if kind == "ones":
+            counts += [1] * draw(st.integers(1, 700))
+        elif kind == "long":
+            counts.append(draw(st.integers(2, 4000)))
+        else:
+            counts.append(C.FCHUNK - sum(counts) % C.FCHUNK)
+    total = sum(counts)
+    chunks = max(1, -(-total // C.FCHUNK) + draw(st.integers(-2, 2)))
+    cap = chunks * C.FCHUNK
+    ends = [e for e in np.cumsum(counts).tolist() if e <= cap]
+    f_kept = draw(st.sampled_from(["zero", "full", "boundary", "inside"]))
+    f_kept = {"zero": 0, "full": min(total, cap) if total <= cap else cap,
+              "boundary": ends[draw(st.integers(0, len(ends) - 1))]
+              if ends else 0,
+              "inside": draw(st.integers(0, min(total, cap)))}[f_kept]
+    return counts, chunks, f_kept
+
+
+@settings(max_examples=60, deadline=None)
+@given(case=slot_ranges(), seed=st.integers(0, 2**31 - 1))
+def test_segsum_plain_matches_brute_force_on_drawn_ranges(case, seed):
+    _assert_segsum_plain(*case, seed=seed)
+
+
+@pytest.mark.parametrize("rows_mode", [False, True])
+def test_synthetic_ranges_follow_the_binning_layout(rows_mode):
+    counts, chunks, f_kept = RANGE_CASES["dropped_past_f_kept"]
+    table, bases, fk, d, db = KC.synthetic_ranges(counts, chunks, f_kept, 1,
+                                                  "cpu", rows_mode=rows_mode)
+    assert table.shape == (40 if rows_mode else 24,
+                           C.padded_width(len(counts)))
+    assert int(fk) == f_kept and d.shape == (10, chunks * C.FCHUNK)
+    off = table[C.ROW_OFF]
+    assert (off[1:] >= off[:-1]).all() and float(off[len(counts)]) >= 2e7
+    assert (bases % 128 == 0).all() and int(bases.max()) + C.WIN <= off.numel()
+    # every chunk's first slot is owned inside its window
+    owner = torch.searchsorted(off, torch.arange(chunks) * 512.0, right=True) - 1
+    assert ((owner >= bases) & (owner < bases + C.WIN)).all()
+    assert torch.isnan(d[:, f_kept:]).all() and not torch.isnan(d[:, :f_kept]).any()
+    key, rec = C.expand_fragments(table, bases, fk, 8, db, 10)
+    assert (key[f_kept:] == C.INT32_MAX).all() and (key[:f_kept] != C.INT32_MAX).any()
+    KC.check_fragment_kernels(table, bases, fk, 8, db, d)
+
+
+def test_slot_stats_counts_ranges():
+    counts = [1] * 100 + [412] + [600] + [40] + [1] * 10
+    table, bases, fk, d, _ = KC.synthetic_ranges(counts, 3, 1152, 1, "cpu")
+    st_ = KC.slot_stats({"cb": KC.C.CompactBinning(
+        aux_rows=None, bases=bases, tile_starts=None, tile_counts=None,
+        f_kept=fk, num_fragments=None, dropped=None, overflow=None),
+        "table": table})
+    # filled: the 100 ones, the 412, the 600 and the 40 (1,152 slots)
+    assert st_["f_kept"] == 1152 and st_["capacity"] == 1536
+    assert st_["owning_columns"] == 103 and st_["filled_chunks"] == 3
+    assert st_["slots_per_gaussian"]["max"] == 600
+    assert st_["share_over_32"] == pytest.approx((412 + 600 + 40) / 1152)
+    assert st_["share_over_512"] == pytest.approx(600 / 1152)
+    assert st_["cross_chunk"] == 1      # the 600 runs from slot 512 to 1,111
+
+
+def _render_and_grads(params, cam, size=SIZE):
+    leaves = [x.detach().clone().requires_grad_(True) for x in params]
+    p = type(params)(*leaves)
+    out = render(p.xyz, G.get_features(p), G.get_opacity(p), G.get_scaling(p),
+                 p.rotation, cam, 3, size, size)
+    (out["rendered_image"].square().mean()
+     + out["rendered_depth"].mean()).backward()
+    return [out["rendered_image"].detach(), out["rendered_depth"].detach()
+            ] + [x.grad for x in leaves]
+
+
+def _assert_poison_changes_nothing(device, size):
+    params, cam = scene(device=device)
+    clean = _render_and_grads(params, cam, size)
+    seen = []
+    real = C.expand_fragments
+    with KC.poisoned_expand():
+        assert C.expand_fragments is not real
+        poisoned_fn = C.expand_fragments
+
+        def spy(*a, **k):
+            key, rec = poisoned_fn(*a, **k)
+            seen.append(int(torch.isnan(rec).sum()))
+            return key, rec
+
+        C.expand_fragments = spy
+        try:
+            poisoned = _render_and_grads(params, cam, size)
+        finally:
+            C.expand_fragments = poisoned_fn
+    assert C.expand_fragments is real
+    assert seen and seen[0] > 0        # the records did carry NaN
+    for a, b in zip(clean, poisoned):
+        assert torch.isfinite(a).all() and torch.equal(a, b)
+
+
+def test_poisoned_expand_keeps_render_and_gradient_bits():
+    """NaN in every record expand may leave unwritten (slots at or past
+    f_kept) changes no bit of the render or of its gradients."""
+    _assert_poison_changes_nothing("cpu", SIZE)
+
+
+@pytest.mark.parametrize("n_rows", [1, 12, 16])
+def test_expand_takes_only_the_two_row_counts(n_rows):
+    counts, chunks, f_kept = RANGE_CASES["runs_of_one_slot"]
+    table, bases, fk, _, db = KC.synthetic_ranges(counts, chunks, f_kept, 1,
+                                                  "cpu")
+    with pytest.raises(ValueError, match="record rows"):
+        C.expand_fragments(table, bases, fk, 8, db, n_rows)
+
+
 # --------------------------------------------------------------------------
 # on the card
 # --------------------------------------------------------------------------
@@ -265,6 +432,61 @@ def test_cuda_tile_kernels_tile_id_offset(cuda_device):
     first = int(cb.tile_starts[half])
     assert torch.equal(d_rec[:, first:], whole[:, first:])
     assert not d_rec[:, :first].any()
+
+
+@pytest.mark.parametrize("rows_mode", [False, True])
+@pytest.mark.parametrize("case", list(RANGE_CASES))
+def test_cuda_fragment_kernels_on_feared_ranges(cuda_device, case, rows_mode):
+    """expand (keys everywhere, records on valid slots) and segsum (1e-5 of
+    the maximum, twice for equal bits) against their plain versions; the
+    gradient rows are NaN at and past f_kept."""
+    counts, chunks, f_kept = RANGE_CASES[case]
+    for n_rows in (C.N_CORE_ROWS, C.NUM_REC_ROWS):
+        table, bases, fk, d, db = KC.synthetic_ranges(
+            counts, chunks, f_kept, 4, cuda_device, rows_mode=rows_mode,
+            n_rows=n_rows)
+        kernels.reset_launches()
+        KC.check_fragment_kernels(table, bases, fk, 8, db, d)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["expand"] == 1
+        assert kernels.LAUNCHES["segsum"] == 2
+
+
+@settings(max_examples=40, deadline=None,
+          suppress_health_check=[HealthCheck.function_scoped_fixture])
+@given(case=slot_ranges(), seed=st.integers(0, 2**31 - 1),
+       rows_mode=st.booleans())
+def test_cuda_fragment_kernels_on_drawn_ranges(cuda_device, case, seed,
+                                               rows_mode):
+    table, bases, fk, d, db = KC.synthetic_ranges(*case, seed, cuda_device,
+                                                  rows_mode=rows_mode)
+    KC.check_fragment_kernels(table, bases, fk, 8, db, d)
+    torch.cuda.synchronize()
+
+
+def test_cuda_expand_leaves_empty_slots_unwritten(cuda_device):
+    """Keys are INT32_MAX from f_kept on and the records there keep what
+    the buffer held; below f_kept every record is written."""
+    counts, chunks, f_kept = RANGE_CASES["f_kept_inside_segment"]
+    table, bases, fk, _, db = KC.synthetic_ranges(counts, chunks, f_kept, 4,
+                                                  cuda_device)
+    rec = torch.full((10, chunks * C.FCHUNK), float("nan"), device=cuda_device)
+    key, out = C.expand_fragments(table, bases, fk, 8, db, 10, rec_out=rec)
+    assert out is rec
+    assert torch.isnan(rec[:, f_kept:]).all()
+    assert not torch.isnan(rec[:, :f_kept]).any()
+    assert (key[f_kept:] == C.INT32_MAX).all()
+
+
+def test_cuda_poisoned_expand_keeps_render_and_gradient_bits(cuda_device):
+    _assert_poison_changes_nothing(cuda_device, 128)
+
+
+def test_cuda_segsum_rejects_other_row_counts(cuda_device):
+    table, bases, fk, d, _ = KC.synthetic_ranges([1] * 600, 2, 600, 1,
+                                                 cuda_device)
+    with pytest.raises(ValueError, match="10 or 13 rows"):
+        C.segment_sum_rows(d[:7].contiguous(), table, bases, fk)
 
 
 def test_cuda_wrappers_reject_wrong_dtype(cuda_device):

@@ -146,7 +146,8 @@ def _jax_stages(splats, tight):
     d_rec = jtk.rasterize_bwd_impl(records, cb.tile_starts, cb.tile_counts,
                                    off, out, jnp.asarray(gout), tx)
     return dict(tx=tx, ty=ty, db=db, cb=cb, table=table, key=key, rec=rec,
-                records=records, out=out, gout=gout, d_rec=d_rec, off=off)
+                records=records, out=out, gout=gout, d_rec=d_rec, off=off,
+                tight=tight)
 
 
 @pytest.fixture(scope="module", params=[True, "rows"])
@@ -154,17 +155,21 @@ def stages(request, scene_splats):
     return _jax_stages(scene_splats, request.param)
 
 
-def test_expand_plain_matches_pallas(stages):
+@pytest.mark.parametrize("n_rows", [tc.NUM_REC_ROWS, tc.N_CORE_ROWS])
+def test_expand_plain_matches_pallas(stages, n_rows):
+    """Both table heights (the `stages` fixture: rect and rows mode) and
+    both emitted row counts; the JAX kernel always emits 13 rows."""
     s = stages
+    assert s["table"].shape[0] == (40 if s["tight"] == "rows" else 24)
     key, rec = tc.expand_fragments(T(s["table"]), T(s["cb"].bases),
-                                   T(s["cb"].f_kept), s["tx"], s["db"])
+                                   T(s["cb"].f_kept), s["tx"], s["db"], n_rows)
     jkey = np.asarray(s["key"])
     np.testing.assert_array_equal(key.numpy(), jkey)
     valid = jkey != np.iinfo(np.int32).max
-    assert valid.sum() > 0
+    assert valid.sum() > 0 and rec.shape == (n_rows, jkey.shape[0])
     # records of invalid slots are junk on the TPU too: compare valid ones
     np.testing.assert_array_equal(rec.numpy()[:, valid],
-                                  np.asarray(s["rec"])[:, valid])
+                                  np.asarray(s["rec"])[:n_rows, valid])
 
 
 def _tile_inputs(s, include_normal):
@@ -228,7 +233,7 @@ def test_segsum_plain_matches_pallas(stages):
     d_presort[:, perm] = np.asarray(s["d_rec"])[:13]
     ref = np.asarray(jc.segment_sum_rows(jnp.asarray(d_presort), s["table"],
                                          s["cb"].bases))
-    got = tc.segment_sum_rows(T(d_presort), T(s["table"]),
+    got = tc.segment_sum_rows(T(d_presort), T(s["table"]), T(s["cb"].bases),
                               T(s["cb"].f_kept)).numpy()
     assert got.shape == ref.shape
     for r in range(13):
