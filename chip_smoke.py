@@ -59,8 +59,26 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
                against their plain versions, slot ranges, warm and cold
                times and bounds. The tile kernels' plain versions are not
                run at this size.
-  6. report  — the card's name and power limit (nvidia-smi), one JSON line
-               of per-kernel numbers, and last {"ok": true, "device": ...}.
+  6. joint   — the joint RoDyGS iteration of the kubric config
+               (`KUBRIC_*`, configs/train/train_kubric_mrig.yaml:103-239) at
+               512x512: the bench static set (100k in 131,072 slots) and
+               24,000 dynamic gaussians in 32,768 slots, 8 frames at times
+               i/7; iterations 481-640, each a static step and a dynamic
+               step (rigidity every 5th), both models densifying at 600.
+               Launch counters are zeroed just before. Prints the static,
+               dynamic and joint ms (medians of the last 10, synchronised),
+               each DensifyInfo with the alive counts around it, and the
+               settled fragment profiles; requires finite losses, a falling
+               dynamic loss, a moving motion model, clone + split > 0 in the
+               static store, alive counts that fit the DensifyInfo, no
+               overflow at the end and every kernel launched. Then the four
+               kernels against their plain versions on frame 0's
+               concatenated static + deformed dynamic set, and
+               torch.profiler over 5 joint iterations (one with rigidity)
+               and over one densification call of each model.
+  7. report  — the card's name and power limit (nvidia-smi), one JSON line
+               of per-kernel numbers (`launches_joint`: launches in phase 6),
+               and last {"ok": true, "device": ...}.
 
 Without CUDA, or run from a directory without the package, it exits with
 a non-zero code before printing any result. Imports neither JAX nor the
@@ -704,6 +722,53 @@ def fragment_op(name, shapes, cap):
     return f"other: {name}"
 
 
+def dev_us(e):
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+# record_function ranges of the port; on the device timeline they repeat the
+# time of the kernels inside them, so they are left out of the busy sum
+RANGES = ("motion_mlp", "rigidity_knn", "densify_and_prune")
+
+
+def device_summary(prof, steps, wall_ms, tag, top=14):
+    """The device's busy ms per step (self time of the device events) and
+    its share of `wall_ms`, and the top device operators."""
+    import torch
+
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and dev_us(e) > 0 and e.key not in RANGES]
+    total_ms = sum(dev_us(e) for e in events) / 1e3 / steps
+    require(total_ms > 0, "the profiler saw no device time")
+    log(f"[{tag}] {steps} steps: wall {wall_ms:.3f} ms/step (profiler on), "
+        f"device busy {total_ms:.3f} ms/step = "
+        f"{100 * total_ms / wall_ms:.1f}% of wall")
+    ours = ("expand_kernel", "tile_fwd_kernel", "tile_bwd_kernel",
+            "segsum_kernel")
+    ranked = sorted(events, key=dev_us, reverse=True)
+    for e in ranked[:top] + [e for e in ranked[top:]
+                             if any(k in e.key for k in ours)]:
+        ms = dev_us(e) / 1e3 / steps
+        log(f"[{tag}]   {ms:8.4f} ms/step {100 * ms / total_ms:5.1f}%  "
+            f"x{e.count // steps:<4d} {e.key[:90]}")
+    return total_ms
+
+
+def range_device_ms(prof, name):
+    """Device time of the kernels launched inside a record_function range
+    (summed over its calls), and the number of calls."""
+    import torch
+
+    hits = [e for e in prof.key_averages() if e.key == name
+            and e.device_type == torch.autograd.DeviceType.CPU]
+    if not hits:
+        return 0.0, 0
+    return (sum(getattr(e, "device_time_total", 0.0) for e in hits) / 1e3,
+            sum(e.count for e in hits))
+
+
 def phase_profile(trainer, batch_for, first_iteration, cap, steps=5):
     """torch.profiler over a few steps: device time by kernel/op (self
     time, per step), the device's busy share of the wall time, and the
@@ -720,28 +785,7 @@ def phase_profile(trainer, batch_for, first_iteration, cap, steps=5):
             trainer.train_iteration(batch_for(it - 1), it)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
-
-    # device-side events only: the CPU-op rows repeat their kernels' time
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and dev_us(e) > 0]
-    total_ms = sum(dev_us(e) for e in events) / 1e3 / steps
-    require(total_ms > 0, "the profiler saw no device time")
-    log(f"[profile] {steps} steps: wall {wall_ms:.3f} ms/step (profiler on), "
-        f"device busy {total_ms:.3f} ms/step = "
-        f"{100 * total_ms / wall_ms:.1f}% of wall")
-    ours = ("expand_kernel", "tile_fwd_kernel", "tile_bwd_kernel",
-            "segsum_kernel")
-    ranked = sorted(events, key=dev_us, reverse=True)
-    for e in ranked[:14] + [e for e in ranked[14:]
-                            if any(k in e.key for k in ours)]:
-        ms = dev_us(e) / 1e3 / steps
-        log(f"[profile]   {ms:8.4f} ms/step {100 * ms / total_ms:5.1f}%  "
-            f"x{e.count // steps:<4d} {e.key[:90]}")
+    device_summary(prof, steps, wall_ms, "profile")
     # the operators between the kernels, by the shapes they were called with
     groups = {}
     for e in prof.key_averages(group_by_input_shape=True):
@@ -756,6 +800,351 @@ def phase_profile(trainer, batch_for, first_iteration, cap, steps=5):
     for group, (ms, n) in sorted(groups.items(), key=lambda g: -g[1][0]):
         log(f"[profile]   fragment-scale {ms:8.4f} ms/step x{n // steps:<3d} "
             f"{group}")
+
+
+# --------------------------------------------------------------------------
+# the joint RoDyGS iteration
+# --------------------------------------------------------------------------
+
+# configs/train/train_kubric_mrig.yaml:103-239, the trainer block, spelled
+# out (the card has no PyYAML). Changed from the file: the image size, the
+# store sizes and the iteration window (JOINT_REDUCED).
+KUBRIC_STATIC_LOSSES = [
+    {"name": "d_ssim", "weight": 0.2, "target": "src.trainer.losses.SSIMLoss",
+     "params": {"mode": "all"}},
+    {"name": "l1", "weight": 0.8, "target": "src.trainer.losses.L1Loss",
+     "params": {"mode": "all"}},
+    {"name": "global_pearson_depth", "weight": 0.05, "start": 0,
+     "target": "src.trainer.losses.GlobalPearsonDepthLoss",
+     "params": {"mode": "all"}},
+    {"name": "local_pearson_depth", "weight": 0.15, "start": 0,
+     "target": "src.trainer.losses.LocalPearsonDepthLoss",
+     "params": {"box_p": 128, "p_corr": 0.5, "mode": "all"}},
+]
+KUBRIC_DYNAMIC_LOSSES = KUBRIC_STATIC_LOSSES[:2] + [
+    {"name": "motion_l1_reg", "weight": 0.01, "start": 0,
+     "target": "src.trainer.losses.MotionL1Loss"},
+    {"name": "motion_sparsity", "weight": 0.002, "start": 0,
+     "target": "src.trainer.losses.MotionSparsityLoss"},
+    {"name": "rigidity", "weight": 0.5, "freq": 5, "start": 0,
+     "target": "src.trainer.losses.RigidityLoss",
+     "params": {"mode": ["distance_preserving", "surface"], "K": 8}},
+    {"name": "motion_basis_reg", "weight": 0.1, "start": 0,
+     "target": "src.trainer.losses.MotionBasisRegularizaiton",
+     "params": {"transl_degree": 0, "rot_degree": 0,
+                "freq_div_mode": "cum_exponential"}},
+    KUBRIC_STATIC_LOSSES[3],
+]
+KUBRIC_STATIC = dict(
+    num_iterations=20000, position_lr_init=0.00016, position_lr_final=1.6e-06,
+    position_lr_delay_mult=0.01, position_lr_max_steps=20000, feature_lr=0.0025,
+    opacity_lr=0.05, scaling_lr=0.005, rotation_lr=0.001, percent_dense=0.01,
+    densification_interval=100, opacity_reset_interval=5000000,
+    densify_from_iter=500, densify_until_iter=20000,
+    densify_grad_threshold=0.0002, camera_rotation_lr=1.0e-05,
+    camera_translation_lr=1.0e-06, camera_lr_warmup=0,
+    camera_total_steps=20000, sh_degree=3)
+KUBRIC_DYNAMIC = dict(
+    KUBRIC_STATIC, scaling_lr=0.001, densify_until_iter=15000,
+    deform_warmup_steps=0, deform_lr_init=0.0016, deform_lr_final=0.00016,
+    deform_lr_delay_mult=0.01, deform_lr_max_steps=20000,
+    motion_coeff_lr=0.00016, camera_rotation_lr=0.0, camera_translation_lr=0.0,
+    deform_netwidth=128, deform_t_emb_multires=26,
+    deform_t_log_sampling=False, num_basis=16, isotropic=False,
+    inverse_motion=True)
+KUBRIC_JOINT = dict(sh_up_start_iteration=15000, sh_up_period=1000)
+JOINT_ITERATIONS = (481, 640)   # both models densify at 600
+JOINT_REDUCED = ("image 512x512 (kubric frames are larger)",
+                 "static store 100,000 in 131,072 slots, dynamic 24,000 in "
+                 "32,768, seeded (no point cloud files)",
+                 "iterations 481-640 of 20,000, from a fresh optimiser state")
+
+
+def joint_trainer(device, size=512, n_static=100_000, cap_static=131072,
+                  n_dyn=24_000, cap_dyn=32768, n_objects=6, n_frames=8):
+    """The joint scene: the bench static set (its GT too), and n_dyn
+    dynamic gaussians in n_objects blobs born at t = 0, each blob moving
+    with a seeded velocity. GT images and depths are rendered by the port
+    from the GT static set plus the moved GT dynamic set on the 8-frame
+    +-0.2 rad arc at times i/7; the image gets N(0, 0.05) noise, the depth
+    a seeded affine distortion and N(0, 0.05) (the Pearson terms are
+    scale-invariant); the motion mask is the dynamic set's alone alpha >
+    0.5. The dynamic model starts from the frame-0 positions and colours
+    through `from_point_cloud` (KNN scale prior, opacity 0.1)."""
+    import torch
+    from rodygs_tpu_torch.models import gaussians as G
+    from rodygs_tpu_torch.render.camera import make_camera
+    from rodygs_tpu_torch.render.rasterize import render
+    from rodygs_tpu_torch.train.losses import MultiLoss
+    from rodygs_tpu_torch.train.optim import CameraPoses
+    from rodygs_tpu_torch.train.trainer_dynamic import (DynTrainer,
+                                                        DynTrainerConfig)
+    from rodygs_tpu_torch.train.trainer_joint import RoDyGSTrainer
+    from rodygs_tpu_torch.train.trainer_static import (
+        FrameBatch, StaticTrainerConfig, ThreeDGSTrainer)
+
+    W = H = size
+    fov = 0.9
+    rng = np.random.default_rng(7)
+    pts = rng.uniform([-2.0, -2.0, 2.5], [2.0, 2.0, 7.0],
+                      size=(n_static, 3)).astype(np.float32)
+    cols = rng.uniform(0.1, 0.9, size=(n_static, 3)).astype(np.float32)
+    static = G.from_point_cloud(pts, cols, sh_degree=3, capacity=cap_static,
+                                device=device)
+    scales = np.exp(rng.uniform(-4.0, -2.6, size=(cap_static, 3)))
+    static = static._replace(params=static.params._replace(
+        scaling=torch.tensor(np.log(scales), dtype=torch.float32,
+                             device=device)))
+
+    drng = np.random.default_rng(13)
+    obj = drng.integers(0, n_objects, n_dyn)
+    centres = drng.uniform([-1.0, -1.0, 3.0], [1.0, 1.0, 4.5], (n_objects, 3))
+    vel = drng.uniform(-0.3, 0.3, (n_objects, 3))
+    base = drng.uniform(0.1, 0.9, (n_objects, 3))
+    dpts = (centres[obj] + drng.normal(0, 0.15, (n_dyn, 3))).astype(np.float32)
+    dcols = np.clip(base[obj] + drng.normal(0, 0.05, (n_dyn, 3)),
+                    0.05, 0.95).astype(np.float32)
+    dyn = G.from_point_cloud(dpts, dcols, sh_degree=3, capacity=cap_dyn,
+                             times=np.zeros(n_dyn, np.float32), device=device)
+    gt_dyn = dyn.params._replace(
+        scaling=torch.full_like(dyn.params.scaling, math.log(0.02)),
+        opacity=torch.full_like(dyn.params.opacity, math.log(0.9 / 0.1)))
+    vel_t = torch.zeros((cap_dyn, 3), device=device)
+    vel_t[:n_dyn] = torch.tensor(vel[obj], dtype=torch.float32, device=device)
+
+    qs, ts = [], []
+    for ang in np.linspace(-0.2, 0.2, n_frames):
+        qs.append([np.cos(ang / 2), 0, np.sin(ang / 2), 0])
+        ts.append([np.sin(ang) * 4.0, 0, 0])
+    poses = CameraPoses(
+        q_c2w=torch.tensor(qs, dtype=torch.float32, device=device),
+        t_c2w=torch.tensor(ts, dtype=torch.float32, device=device))
+    times = [i / (n_frames - 1) for i in range(n_frames)]
+
+    def draw(p, alive, cam):
+        return render(p.xyz, G.get_features(p), G.get_opacity(p),
+                      G.get_scaling(p), p.rotation, cam, 3, W, H, alive=alive)
+
+    gt_rng = np.random.default_rng(11)
+    frames = []
+    with torch.no_grad():
+        for i, t in enumerate(times):
+            cam = make_camera(poses.q_c2w[i], poses.t_c2w[i], fov, fov, t,
+                              device=device)
+            moved = gt_dyn._replace(xyz=gt_dyn.xyz + vel_t * t)
+            both = G.GaussianParams(*[torch.cat(x)
+                                      for x in zip(static.params, moved)])
+            out = draw(both, torch.cat([static.alive, dyn.alive]), cam)
+            img = out["rendered_image"].cpu().numpy()
+            img = np.clip(img + gt_rng.normal(0, 0.05, img.shape), 0.0, 1.0)
+            depth = out["rendered_depth"].cpu().numpy()
+            depth = 1.7 * depth + 0.3 + gt_rng.normal(0, 0.05, depth.shape)
+            mask = draw(moved, dyn.alive, cam)["rendered_alpha"] > 0.5
+            frames.append(FrameBatch(
+                gt_image=torch.tensor(img, dtype=torch.float32, device=device),
+                gt_depth=torch.tensor(depth, dtype=torch.float32, device=device),
+                motion_mask=mask.to(torch.float32), frame_idx=i,
+                time=torch.tensor(t, device=device),
+                fovx=torch.tensor(fov, device=device),
+                fovy=torch.tensor(fov, device=device)))
+
+    s_cfg = StaticTrainerConfig(image_width=W, image_height=H, **KUBRIC_STATIC)
+    d_cfg = DynTrainerConfig(image_width=W, image_height=H, **KUBRIC_DYNAMIC)
+    st = ThreeDGSTrainer(s_cfg, MultiLoss.from_config(KUBRIC_STATIC_LOSSES),
+                         static, poses, spatial_lr_scale=4.0, device=device,
+                         seed=1)
+    dt = DynTrainer(d_cfg, MultiLoss.from_config(KUBRIC_DYNAMIC_LOSSES), dyn,
+                    spatial_lr_scale=4.0, seed=2, device=device)
+    joint = RoDyGSTrainer(st, dt, **KUBRIC_JOINT)
+    return joint, (lambda i: frames[i % n_frames]), (W, H)
+
+
+def _alive(trainer):
+    from rodygs_tpu_torch.models import gaussians as G
+
+    return int(G.num_alive(trainer.state.store))
+
+
+def phase_joint(device, **scene):
+    """Joint iterations 481-640 (static step, static densify, dynamic step,
+    dynamic densify) on the joint scene; checks, then the kernels on the
+    concatenated render of frame 0, then the profiler. Returns
+    ({kernel: launches}, {kernel: max_abs_err})."""
+    import torch
+    from rodygs_tpu_torch import kernel_check as KC
+    from rodygs_tpu_torch import kernels
+    from rodygs_tpu_torch.models import gaussians as G
+    from rodygs_tpu_torch.render import compact as C
+    from rodygs_tpu_torch.render.rasterize import _default_tight
+    from rodygs_tpu_torch.train.trainer_static import make_camera_from_poses
+
+    t_phase = time.perf_counter()
+    joint, batch_for, (W, H) = joint_trainer(device, **scene)
+    torch.cuda.synchronize()
+    log(f"[joint] set-up {time.perf_counter() - t_phase:.2f} s; reduced from "
+        f"the config: {'; '.join(JOINT_REDUCED)}")
+    st, dyn = joint.static, joint.dynamic
+    coeff0 = dyn.state.motion_coeff.clone()
+    net0 = {k: v.clone() for k, v in dyn.state.net["timenet"].items()}
+
+    step_s = {"static": [], "dynamic": []}
+
+    def timed(fn, key):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            step_s[key].append(time.perf_counter() - t)
+            return out
+        return run
+
+    st.step = timed(st.step, "static")
+    joint.dyn_step = timed(joint.dyn_step, "dynamic")
+    first, last = JOINT_ITERATIONS
+    losses = {"static": [], "dynamic": []}
+    joint_s, densified, m = [], {}, None
+    overflowed = {"static": [], "dynamic": []}
+    kernels.reset_launches()
+    for it in range(first, last + 1):
+        before = (_alive(st), _alive(dyn))
+        if it == 600:
+            for name, tr in (("static", st), ("dynamic", dyn)):
+                sts, on = tr.state.stats, tr.state.store.alive
+                g = (sts.grad_accum / sts.denom.clamp(min=1))[on]
+                q = torch.quantile(g, torch.tensor([0.5, 0.9, 0.99],
+                                                   device=g.device))
+                log(f"[joint] {name} mean screen grad before 600: p50 "
+                    f"{float(q[0]):.3g} p90 {float(q[1]):.3g} p99 "
+                    f"{float(q[2]):.3g}, share >= threshold "
+                    f"{float((g >= tr.cfg.densify_grad_threshold).float().mean()):.4f}")
+        t = time.perf_counter()
+        m = joint.train_iteration(batch_for(it - 1), batch_for(it - 1), it)
+        torch.cuda.synchronize()
+        joint_s.append(time.perf_counter() - t)
+        for k in losses:
+            losses[k].append(float(m[k]["loss"]))
+            if bool(m[k]["overflow"]):
+                overflowed[k].append(it)
+        for key, trainer, b in (("static_densify", st, before[0]),
+                                ("dynamic_densify", dyn, before[1])):
+            if key in m:
+                densified[key] = (it, {k: int(v) for k, v in
+                                       m[key]._asdict().items()},
+                                  b, _alive(trainer))
+    launches = dict(kernels.LAUNCHES)
+    del st.step, joint.dyn_step     # the untimed methods again
+
+    med = lambda xs: float(np.median(xs[-10:]) * 1e3)
+    log(f"[joint] {last - first + 1} iterations {first}-{last}: "
+        f"static_step_ms={med(step_s['static']):.3f} "
+        f"dynamic_step_ms={med(step_s['dynamic']):.3f} "
+        f"joint_iteration_ms={med(joint_s):.3f} (medians of the last 10, "
+        f"synchronised)")
+    log(f"[joint] launches on the joint path: {launches}")
+    for key, (it, info, b, a) in densified.items():
+        log(f"[joint] {key} at {it}: {info}, alive {b} -> {a}"
+            + (f"; the dynamic store dropped {info['dropped']}"
+               if key == "dynamic_densify" else ""))
+    log(f"[joint] iterations that overflowed their fragment capacity: "
+        f"{overflowed}")
+    log(f"[joint] settled fragment profiles: static {st.fragment_profile!r} "
+        f"(capacity {C.fragment_capacity(G.capacity_of(st.state.store), st.fragment_profile)}), "
+        f"dynamic {joint.dyn_fragment_profile!r} (capacity "
+        f"{C.fragment_capacity(G.capacity_of(st.state.store) + G.capacity_of(dyn.state.store), joint.dyn_fragment_profile)})")
+    for k in losses:
+        require(all(math.isfinite(x) for x in losses[k]),
+                f"non-finite {k} loss {losses[k]}")
+    terms = {k: float(v) for k, v in m["dynamic"].items()
+             if k not in ("loss", "overflow", "dropped", "num_fragments")}
+    log(f"[joint] last dynamic terms {terms}")
+    f8, l8 = np.mean(losses["dynamic"][:8]), np.mean(losses["dynamic"][-8:])
+    log(f"[joint] dynamic loss first-8 mean {f8:.6f} -> last-8 mean {l8:.6f}; "
+        f"static {np.mean(losses['static'][:8]):.6f} -> "
+        f"{np.mean(losses['static'][-8:]):.6f}")
+    require(l8 < f8, "the dynamic loss did not fall")
+    moved_c = float((dyn.state.motion_coeff - coeff0).abs().max())
+    moved_n = max(float((dyn.state.net["timenet"][k] - v).abs().max())
+                  for k, v in net0.items())
+    log(f"[joint] motion_coeff moved max {moved_c:.3g}, timenet weights "
+        f"moved max {moved_n:.3g}")
+    require(moved_c > 0 and moved_n > 0, "the motion model did not move")
+    require(set(densified) == {"static_densify", "dynamic_densify"}
+            and all(v[0] == 600 for v in densified.values()),
+            f"densification did not run for both models at 600: {densified}")
+    s_info = densified["static_densify"][1]
+    require(s_info["num_cloned"] + s_info["num_split"] > 0,
+            "no clone or split in the static store")
+    for key, (_, info, b, a) in densified.items():
+        # a pruned or split gaussian leaves (some are both); each placed
+        # clone or child arrives
+        low = b - info["num_pruned"] - info["num_split"] + info["num_cloned"] \
+            - info["dropped"]
+        high = (b - max(info["num_pruned"], info["num_split"])
+                + info["num_cloned"] + 2 * info["num_split"] - info["dropped"])
+        require(low <= a <= high and info["dropped"] >= 0,
+                f"{key}: alive {b} -> {a} does not fit {info}")
+    require(not bool(m["static"]["overflow"]) and
+            not bool(m["dynamic"]["overflow"]), "fragment overflow at the end")
+    require(all(launches[k] > 0 for k in kernels.KERNELS),
+            f"a kernel never launched on the joint path: {launches}")
+
+    # the four kernels against their plain versions on the concatenated
+    # static + deformed dynamic set of frame 0 (the dynamic step's input)
+    b0 = batch_for(0)
+    with torch.no_grad():
+        p = dyn.params()
+        transl, rot_delta = dyn.deformation(p, b0.time, dyn.state.store.time_ind)
+        sp, gp = st.state.store.params, p.gauss
+        cat = G.GaussianParams(
+            xyz=torch.cat([sp.xyz, gp.xyz + transl]),
+            features_dc=torch.cat([sp.features_dc, gp.features_dc]),
+            features_rest=torch.cat([sp.features_rest, gp.features_rest]),
+            scaling=torch.cat([sp.scaling, gp.scaling]),
+            rotation=torch.cat([G.get_rotation(sp),
+                                G.get_rotation(gp) + rot_delta]),
+            opacity=torch.cat([sp.opacity, gp.opacity]))
+    alive = torch.cat([st.state.store.alive, dyn.state.store.alive])
+    s = KC.capture_stages(cat, alive, make_camera_from_poses(st.state.poses, b0),
+                          dyn.active_sh_degree, W, H, joint.dyn_fragment_profile,
+                          _default_tight(32 * 32), 4)
+    errs = KC.check_stages(s)
+    sl = KC.slot_stats(s)
+    log(f"[joint] check on frame 0's concatenated render: "
+        f"{G.capacity_of(st.state.store)} + {G.capacity_of(dyn.state.store)} "
+        f"gaussians, C={sl['capacity']} f_kept={sl['f_kept']} "
+        f"fragments={int(s['cb'].num_fragments)} max_abs_err={errs}")
+    del s
+
+    # the profiler: 5 joint iterations, one with rigidity, then one
+    # densification call of each model (its result discarded)
+    from torch.profiler import ProfilerActivity, profile
+
+    steps = 5
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for it in range(last + 1, last + 1 + steps):
+            joint.train_iteration(batch_for(it - 1), batch_for(it - 1), it)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    device_summary(prof, steps, wall_ms, "joint profile")
+    for name in ("motion_mlp", "rigidity_knn"):
+        ms, n = range_device_ms(prof, name)
+        log(f"[joint profile] {name}: {ms:.4f} ms of device time in {n} "
+            f"calls over {steps} iterations (forward only; the backward "
+            f"runs outside the range)")
+    for name, trainer in (("static", st), ("dynamic", dyn)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trainer.densify(trainer.state, None)
+            torch.cuda.synchronize()
+        ms, _ = range_device_ms(prof, "densify_and_prune")
+        log(f"[joint profile] densify_and_prune of the {name} model "
+            f"({G.capacity_of(trainer.state.store)} slots): {ms:.4f} ms of "
+            f"device time")
+    log(f"[joint] phase {time.perf_counter() - t_phase:.2f} s")
+    return launches, errs
 
 
 def main() -> int:
@@ -801,6 +1190,9 @@ def main() -> int:
     timings = time_kernels(s)
     del s
     e1080, t1080 = phase_1080p(device)
+    del trainer, st
+    torch.cuda.empty_cache()
+    launches_joint, e_joint = phase_joint(device)
 
     rows = []
     for name in kernels.KERNELS:
@@ -808,8 +1200,9 @@ def main() -> int:
         t = timings[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
+                     "launches_joint": launches_joint[name],
                      "max_abs_err": max(errs[name], e512[name],
-                                        e1080.get(name, 0.0)),
+                                        e1080.get(name, 0.0), e_joint[name]),
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
@@ -821,7 +1214,8 @@ def main() -> int:
             f"{t['plain_ms']:.4f} ms, library {t['library_ms']}, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), launches in "
             f"{iterations} steps "
-            f"{launches[name]}")
+            f"{launches[name]}, in {JOINT_ITERATIONS[1] - JOINT_ITERATIONS[0] + 1} "
+            f"joint iterations {launches_joint[name]}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

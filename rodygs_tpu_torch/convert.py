@@ -1,7 +1,9 @@
 """State conversion between the JAX package and the port.
 
 The JAX package's state (`GaussianStore`, `CameraPoses`, `AdamState`,
-`DensifyStats`) arrives as numpy arrays: a mapping of field name -> array,
+`DensifyStats`, `DensifyInfo`, and the dynamic model's motion-net dict,
+motion coefficients and `DynTrainState` with its Adam moments) arrives as
+numpy arrays: a mapping of field name -> array,
 or any NamedTuple-like object with `_asdict()` whose leaves convert with
 `np.asarray`. The port's tensors go back out as dicts of numpy arrays with
 the same field names, so both sides can step from identical state. Nothing
@@ -16,8 +18,9 @@ import numpy as np
 import torch
 
 from .models.gaussians import GaussianParams, GaussianStore
-from .train.densify import DensifyStats
+from .train.densify import DensifyInfo, DensifyStats
 from .train.optim import AdamState, CameraPoses
+from .train.trainer_dynamic import DynParams, DynTrainState
 from .utils.platform import resolve_device
 
 
@@ -89,3 +92,64 @@ def stats_from_numpy(obj, device=None) -> DensifyStats:
 
 def stats_to_numpy(stats: DensifyStats) -> dict:
     return _tuple_to(stats)
+
+
+def densify_info_from_numpy(obj, device=None) -> DensifyInfo:
+    return _tuple_from(DensifyInfo, obj, resolve_device(device))
+
+
+def densify_info_to_numpy(info: DensifyInfo) -> dict:
+    return _tuple_to(info)
+
+
+def net_from_numpy(obj, device=None) -> dict:
+    """The motion net's nested dict ({timenet: {w0, ...}, heads: {...}})."""
+    dev = resolve_device(device)
+    return {k: net_from_numpy(v, dev) if isinstance(v, Mapping)
+            else _tensor(v, dev) for k, v in obj.items()}
+
+
+def net_to_numpy(net: dict) -> dict:
+    return {k: net_to_numpy(v) if isinstance(v, dict) else _to_numpy(v)
+            for k, v in net.items()}
+
+
+def dyn_params_from_numpy(obj, device=None) -> DynParams:
+    """DynParams from `{gauss: {xyz, ...}, motion_coeff, net}`."""
+    dev = resolve_device(device)
+    f = _fields(obj)
+    return DynParams(gauss=_tuple_from(GaussianParams, f["gauss"], dev),
+                     motion_coeff=_tensor(f["motion_coeff"], dev),
+                     net=net_from_numpy(f["net"], dev))
+
+
+def dyn_params_to_numpy(params: DynParams) -> dict:
+    return {"gauss": _tuple_to(params.gauss),
+            "motion_coeff": _to_numpy(params.motion_coeff),
+            "net": net_to_numpy(params.net)}
+
+
+def dyn_state_from_numpy(obj, device=None) -> DynTrainState:
+    """DynTrainState from `{store, motion_coeff, net, opt: {mu, nu, count},
+    stats}`, the moments shaped like DynParams."""
+    dev = resolve_device(device)
+    f = _fields(obj)
+    opt = _fields(f["opt"])
+    return DynTrainState(
+        store=store_from_numpy(f["store"], dev),
+        motion_coeff=_tensor(f["motion_coeff"], dev),
+        net=net_from_numpy(f["net"], dev),
+        opt=AdamState(mu=dyn_params_from_numpy(opt["mu"], dev),
+                      nu=dyn_params_from_numpy(opt["nu"], dev),
+                      count=_tensor(opt["count"], dev).to(torch.int32)),
+        stats=stats_from_numpy(f["stats"], dev))
+
+
+def dyn_state_to_numpy(state: DynTrainState) -> dict:
+    return {"store": store_to_numpy(state.store),
+            "motion_coeff": _to_numpy(state.motion_coeff),
+            "net": net_to_numpy(state.net),
+            "opt": {"mu": dyn_params_to_numpy(state.opt.mu),
+                    "nu": dyn_params_to_numpy(state.opt.nu),
+                    "count": _to_numpy(state.opt.count)},
+            "stats": stats_to_numpy(state.stats)}

@@ -1,6 +1,8 @@
 """Gaussian store: fixed-capacity NamedTuples of tensors with an alive mask.
 Port of `rodygs_tpu/models/gaussians.py` (fields, activations,
-`from_point_cloud`, `capacity_of`, `sh_degree_up`).
+`from_point_cloud`, `capacity_of`, `num_alive`, `unique_times`,
+`sh_degree_up`, `to_state_dict` / `from_state_dict`; `shard_interleave`
+waits for multi-device).
 
 Raw (pre-activation) parameters keep the JAX field names and layouts so
 state converts one-to-one (convert.py). Dead capacity slots carry zeroed
@@ -9,7 +11,7 @@ parameters; the renderer masks them through `alive`.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import numpy as np
 import torch
@@ -44,6 +46,10 @@ def inverse_sigmoid(x):
 
 def capacity_of(store: GaussianStore) -> int:
     return store.params.xyz.shape[0]
+
+
+def num_alive(store: GaussianStore) -> torch.Tensor:
+    return torch.sum(store.alive.to(torch.int32))
 
 
 def get_scaling(params: GaussianParams, isotropic: bool = False) -> torch.Tensor:
@@ -128,3 +134,44 @@ def from_point_cloud(
 def sh_degree_up(active_degree: int, max_degree: int) -> int:
     """`oneupSHdegree`: host-side static ramp."""
     return min(active_degree + 1, max_degree)
+
+
+def unique_times(store: GaussianStore) -> np.ndarray:
+    """Sorted unique birth timestamps of alive Gaussians (host-side)."""
+    alive = store.alive.cpu().numpy()
+    return np.sort(np.unique(store.time.cpu().numpy()[alive]))
+
+
+def to_state_dict(store: GaussianStore) -> dict[str, Any]:
+    """The reference checkpoint's field names for the model section."""
+    p = store.params
+    return {
+        "_xyz": p.xyz,
+        "_features_dc": p.features_dc,
+        "_features_rest": p.features_rest,
+        "_scaling": p.scaling,
+        "_rotation": p.rotation,
+        "_opacity": p.opacity,
+        "alive": store.alive,
+        "time": store.time,
+        "time_ind": store.time_ind,
+    }
+
+
+def from_state_dict(sd: dict[str, Any], device=None) -> GaussianStore:
+    """Inverse of `to_state_dict`; values may be tensors or numpy arrays.
+    Missing `alive` / `time` / `time_ind` default to all alive, time 1 and
+    index 0."""
+    dev = resolve_device(device)
+
+    def t(x, dtype=None):
+        return torch.as_tensor(np.asarray(x) if not torch.is_tensor(x) else x,
+                               dtype=dtype, device=dev)
+
+    params = GaussianParams(*[t(sd["_" + name]) for name in GaussianParams._fields])
+    cap = params.xyz.shape[0]
+    return GaussianStore(
+        params=params,
+        alive=t(sd.get("alive", np.ones(cap, bool)), torch.bool),
+        time=t(sd.get("time", np.ones(cap, np.float32)), torch.float32),
+        time_ind=t(sd.get("time_ind", np.zeros(cap, np.int32)), torch.int32))

@@ -1,5 +1,6 @@
-"""Image-space loss math: L1 and windowed SSIM on channels-last [H, W, C]
-images. Port of `rodygs_tpu/ops/image.py` (L1, SSIM subset).
+"""Image-space loss math on channels-last [H, W, C] images: L1, windowed
+SSIM, Pearson depth correlation and Charbonnier. Port of
+`rodygs_tpu/ops/image.py` (all but `l2_loss` and `psnr`).
 
 SSIM uses the 11-tap sigma-1.5 separable Gaussian window with C1=0.01^2,
 C2=0.03^2, and zero-padded borders. The separable blur is two banded-matrix
@@ -80,3 +81,44 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
         (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2))
     return torch.mean(ssim_map)
 
+
+def pearson_rows(pred: torch.Tensor, gt: torch.Tensor,
+                 eps: float = 1e-6) -> torch.Tensor:
+    """1 - Pearson correlation along the last dim of [..., n] rows, with the
+    reference's unbiased (n-1) standard deviation."""
+    n = pred.shape[-1]
+    pc = pred - pred.mean(dim=-1, keepdim=True)
+    gc = gt - gt.mean(dim=-1, keepdim=True)
+    bessel = (n / max(n - 1.0, 1.0)) ** 0.5
+    pn = pc / (torch.std(pc, dim=-1, correction=0, keepdim=True) * bessel + eps)
+    gn = gc / (torch.std(gc, dim=-1, correction=0, keepdim=True) * bessel + eps)
+    return 1.0 - torch.mean(pn * gn, dim=-1)
+
+
+def pearson_depth_loss(pred: torch.Tensor, gt: torch.Tensor, eps: float = 1e-6,
+                       mask: torch.Tensor | None = None) -> torch.Tensor:
+    """1 - Pearson correlation of flattened depths. The mask zeroes
+    masked-out entries, but mean and std are still taken over all entries
+    (the reference's semantics)."""
+    p = pred.reshape(-1)
+    g = gt.reshape(-1)
+    if mask is not None:
+        m = mask.reshape(-1).to(p.dtype)
+        p = p * m
+        g = g * m
+    return pearson_rows(p, g, eps)
+
+
+def charbonnier_loss(x: torch.Tensor, y: torch.Tensor, eps: float = 1e-6,
+                     out_norm: str = "bc") -> torch.Tensor:
+    """Charbonnier (smooth L1) summed, then normalised per `out_norm`: 'b'
+    divides by dim 0, 'c' by dim 1, 'i' by the last two dims."""
+    loss = torch.sum(torch.sqrt((x - y) ** 2 + eps**2))
+    norm = 1.0
+    if "b" in out_norm:
+        norm /= x.shape[0]
+    if "c" in out_norm:
+        norm /= x.shape[1]
+    if "i" in out_norm:
+        norm /= x.shape[-1] * x.shape[-2]
+    return loss * norm

@@ -12,7 +12,10 @@ the tile-backward and segsum kernels) -> image.
 
 The screen-space densification gradient is reproduced functionally: pass a
 zero [2, N] tensor with requires_grad as `means2d_offset`; its gradient is
-dL/d(means2d) in the reference's scaled-NDC units (dL/dpixel * 0.5*[W, H]).
+dL/d(means2d) in the reference's scaled-NDC units (dL/dpixel * 0.5*[W, H]),
+the units its 2e-4 densification threshold is set in. The JAX package adds
+the offset divided by 0.5*[W, H] where this multiplies, so its statistic is
+(0.5*[W, H])^2 smaller (ROADMAP, faults found in the reference).
 
 Not ported yet (ROADMAP queue 1 item 12): the legacy `binning_mode`,
 tile / gauss sharding axes, sort bands, the bf16 payload, the
@@ -77,7 +80,7 @@ def render(
     if means2d_offset is not None:
         scale = torch.tensor([[0.5 * image_width], [0.5 * image_height]],
                              dtype=torch.float32, device=means3d.device)
-        splats = splats._replace(mean2d=splats.mean2d + means2d_offset / scale)
+        splats = splats._replace(mean2d=splats.mean2d + means2d_offset * scale)
 
     num_tiles = tiles_x * tiles_y
     n = splats.mean2d.shape[1]

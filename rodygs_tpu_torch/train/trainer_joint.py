@@ -1,0 +1,173 @@
+"""Joint static + dynamic trainer, the top of the training stack. Port of
+`rodygs_tpu/train/trainer_joint.py` (`RoDyGSTrainer.__init__`, the dynamic
+step and `train_iteration`; checkpoint writing and resume wait for the host
+layer).
+
+Per iteration: (1) the static step, which renders the static set alone and
+trains the static Gaussians and the camera poses; (2) the static model's
+densification on its schedule; (3) the dynamic step, which renders the
+static set concatenated with the deformed dynamic set but trains only the
+dynamic model (the static params and poses enter it detached, and only the
+dynamic slice of the screen-space gradients feeds its statistics); (4) the
+dynamic model's densification. The SH degree ramps on the joint schedule
+and is mirrored to the dynamic model. The joint trainer never resets
+opacity. One pose array, owned by the static trainer, serves both steps
+(the dynamic stage's camera learning rates are 0 in every shipped config).
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from ..models import gaussians as G
+from ..render.rasterize import render
+from .densify import accumulate_stats
+from .optim import CameraPoses, adam_update, tree_leaves, tree_map
+from .trainer_dynamic import DynParams, DynTrainer, DynTrainState
+from .trainer_static import (EscalationPoller, FrameBatch, ThreeDGSTrainer,
+                             densify_due, make_camera_from_poses,
+                             scene_lr_gate, screen_size_threshold)
+
+
+class RoDyGSTrainer:
+    def __init__(self, static_trainer: ThreeDGSTrainer,
+                 dynamic_trainer: DynTrainer | None,
+                 sh_up_start_iteration: int = 0,
+                 sh_up_period: int = 1000):
+        self.static = static_trainer
+        self.dynamic = dynamic_trainer
+        self.skip_dynamic = dynamic_trainer is None
+        self.sh_up_start_iteration = sh_up_start_iteration
+        self.sh_up_period = sh_up_period
+        if not self.skip_dynamic:
+            self.dyn_fragment_profile: str | int = "lean"
+            self._dyn_escalation = EscalationPoller()
+
+    def dyn_step(self, dyn_state: DynTrainState, static_store: G.GaussianStore,
+                 poses: CameraPoses, batch: FrameBatch, iteration,
+                 active, sh_degree: int, use_deform: bool,
+                 fragment_profile="lean"):
+        """One dynamic step from `dyn_state`; returns (new_state, metrics)."""
+        dyn = self.dynamic
+        cfg = dyn.cfg
+        sp = static_store.params
+        cs = G.capacity_of(static_store)
+        cd = G.capacity_of(dyn_state.store)
+        old = DynParams(gauss=dyn_state.store.params,
+                        motion_coeff=dyn_state.motion_coeff, net=dyn_state.net)
+        params = tree_map(lambda x: x.detach().requires_grad_(True), old)
+        offset = torch.zeros((2, cs + cd), device=dyn.device,
+                             requires_grad=True)
+        gp = params.gauss
+        if use_deform:
+            transl, rot_delta = dyn.deformation(
+                params, batch.time, dyn_state.store.time_ind)
+        else:
+            transl = torch.zeros_like(gp.xyz)
+            rot_delta = torch.zeros((cd, 4), device=dyn.device)
+        d_alive = dyn_state.store.alive
+        dyn_rot = G.get_rotation(gp)
+        if not cfg.isotropic:
+            dyn_rot = dyn_rot + rot_delta
+        out = render(
+            torch.cat([sp.xyz.detach(), gp.xyz + transl]),
+            torch.cat([G.get_features(sp).detach(), G.get_features(gp)]),
+            torch.cat([G.get_opacity(sp).detach(), G.get_opacity(gp)]),
+            torch.cat([G.get_scaling(sp, cfg.isotropic).detach(),
+                       G.get_scaling(gp, cfg.isotropic)]),
+            torch.cat([G.get_rotation(sp).detach(), dyn_rot]),
+            make_camera_from_poses(CameraPoses(*[p.detach() for p in poses]),
+                                   batch),
+            sh_degree, cfg.image_width, cfg.image_height,
+            alive=torch.cat([static_store.alive, d_alive]),
+            means2d_offset=offset, fragment_profile=fragment_profile,
+            include_normal=dyn.loss.uses_normal)
+        ctx = {
+            "pred_img": out["rendered_image"],
+            "gt_img": batch.gt_image,
+            "pred_depth": out["rendered_depth"],
+            "gt_depth": batch.gt_depth,
+            "pred_normal": out["rendered_normal"],
+            "motion_mask": batch.motion_mask,
+            "rng": dyn.gen,
+            # the model terms read the dynamic slice
+            "motion_coeff": params.motion_coeff,
+            "canon_xyz": gp.xyz,
+            "features_dc": gp.features_dc,
+            "pred_translation": transl,
+            "alive": d_alive,
+            "motion_table": dyn.motion_table(params),
+        }
+        total, loss_dict = dyn.loss(ctx, active)
+        leaves = tree_leaves(params) + [offset]
+        grads = torch.autograd.grad(total, leaves, allow_unused=True)
+        grads = iter([torch.zeros_like(x) if g is None else g
+                      for x, g in zip(leaves, grads)])
+        g_params = tree_map(lambda _: next(grads), params)
+        g_offset = next(grads)
+
+        gate = scene_lr_gate(cfg, iteration)
+        new_params, new_opt = adam_update(
+            g_params, dyn_state.opt, old, dyn.lr_tree(iteration),
+            update_gate=gate if cfg.scene_lr_delay > 0 else None)
+        new_stats = accumulate_stats(
+            dyn_state.stats, g_offset[:, cs:],
+            out["radii"][cs:].to(torch.float32),
+            out["visibility_filter"][cs:])
+        new_state = dyn_state._replace(
+            store=dyn_state.store._replace(params=new_params.gauss),
+            motion_coeff=new_params.motion_coeff, net=new_params.net,
+            opt=new_opt, stats=new_stats)
+        metrics = {"loss": total.detach(), "overflow": out["overflow"],
+                   "dropped": out["dropped"],
+                   "num_fragments": out["num_fragments"],
+                   **{k: v.detach() for k, v in loss_dict.items()}}
+        return new_state, metrics
+
+    def train_iteration(self, static_batch: FrameBatch,
+                        dynamic_batch: FrameBatch | None,
+                        iteration: int) -> dict[str, Any]:
+        st = self.static
+        if (iteration > self.sh_up_start_iteration
+                and iteration % self.sh_up_period == 0):
+            st.active_sh_degree = G.sh_degree_up(st.active_sh_degree,
+                                                 st.cfg.sh_degree)
+        metrics = {}
+        st.state, m_static = st.step(
+            st.state, static_batch, float(iteration),
+            st.loss.active_set(iteration), st.active_sh_degree,
+            st.fragment_profile)
+        metrics["static"] = m_static
+        wider = st._escalation.poll(iteration, m_static,
+                                    G.capacity_of(st.state.store),
+                                    st.fragment_profile)
+        if wider is not None:
+            st.fragment_profile = wider
+        if densify_due(st.cfg, iteration):
+            st.state, metrics["static_densify"] = st.densify(
+                st.state, screen_size_threshold(st.cfg, iteration))
+
+        if not self.skip_dynamic:
+            dyn = self.dynamic
+            dyn.active_sh_degree = st.active_sh_degree
+            dyn.state, m_dyn = self.dyn_step(
+                dyn.state, st.state.store, st.state.poses, dynamic_batch,
+                float(iteration), dyn.loss.active_set(iteration),
+                dyn.active_sh_degree,
+                use_deform=iteration > dyn.cfg.deform_warmup_steps,
+                fragment_profile=self.dyn_fragment_profile)
+            metrics["dynamic"] = m_dyn
+            # the dynamic step renders the concatenated set: its capacity is
+            # sized against the combined store
+            wider = self._dyn_escalation.poll(
+                iteration, m_dyn,
+                G.capacity_of(st.state.store) + G.capacity_of(dyn.state.store),
+                self.dyn_fragment_profile)
+            if wider is not None:
+                self.dyn_fragment_profile = wider
+            info = dyn.maybe_densify(iteration)
+            if info is not None:
+                metrics["dynamic_densify"] = info
+        return metrics

@@ -1,25 +1,25 @@
 """Static 3DGS trainer. Port of `rodygs_tpu/train/trainer_static.py`
 (`StaticTrainerConfig`, `FrameBatch`, `EscalationPoller`, `scene_lr_gate`,
-`ThreeDGSTrainer.train_iteration`).
+`ThreeDGSTrainer`: the step, densification and the opacity reset, the SH
+ramp, `state_dict`).
 
 One iteration: pose-differentiable render through the compact path, the
 MultiLoss, gradients over the Gaussian params, the camera poses and the
 `means2d` offset (densification statistic), Adam (eps 1e-15) for the
 Gaussians with the exponential xyz schedule, Adam for the poses, and the
-densify-stat accumulation. PyTorch runs eagerly, so there is no step
-variant to compile: a fragment-capacity change just allocates at the new
-size on the next render.
+densify-stat accumulation; then densification and the opacity reset on
+their schedules. PyTorch runs eagerly, so there is no step variant to
+compile: a fragment-capacity change just allocates at the new size on the
+next render.
 
-Densification and the opacity reset are not ported yet (ROADMAP queue 1
-item 7): an iteration on which they would run raises NotImplementedError;
-`densification_interval=0` with an opacity reset interval beyond the run
-skips both, as the benchmark configures it.
+Randomness (the local Pearson boxes, the split samples) comes from one
+`torch.Generator` per trainer on its device, seeded by the caller.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import Any, NamedTuple
 
 import torch
 
@@ -32,7 +32,8 @@ from ..render.compact import (BAND_KEEP_MARGIN, bands_decision, bands_viable,
                               profile_for_demand, split_profile)
 from ..render.rasterize import render
 from ..utils.platform import resolve_device
-from .densify import DensifyStats, accumulate_stats, init_stats
+from .densify import (DensifyStats, accumulate_stats, densify_and_prune,
+                      init_stats, reset_opacity)
 from .losses import MultiLoss
 from .optim import AdamState, CameraPoses, adam_init, adam_update, camera_lr_tree
 
@@ -136,6 +137,20 @@ def _param_lr_tree(cfg: StaticTrainerConfig, iteration, spatial_lr_scale):
     )
 
 
+def densify_due(cfg: StaticTrainerConfig, iteration: int) -> bool:
+    """Whether densification runs at `iteration`."""
+    return (iteration < cfg.densify_until_iter
+            and cfg.densification_interval != 0
+            and iteration > cfg.densify_from_iter
+            and iteration % cfg.densification_interval == 0)
+
+
+def screen_size_threshold(cfg: StaticTrainerConfig, iteration: int):
+    """The screen-size prune threshold of a densification at `iteration`:
+    20 pixels once past the first opacity reset, else none."""
+    return 20.0 if iteration > cfg.opacity_reset_interval else None
+
+
 class EscalationPoller:
     """Demand-driven fragment-capacity escalation and shrinking with
     deferred host reads; the logic is the JAX package's, unchanged (see its
@@ -223,7 +238,7 @@ class ThreeDGSTrainer:
 
     def __init__(self, cfg: StaticTrainerConfig, loss: MultiLoss,
                  store: G.GaussianStore, poses: CameraPoses,
-                 spatial_lr_scale: float, device=None):
+                 spatial_lr_scale: float, device=None, seed: int = 0):
         if cfg.camera_sparse_adam:
             raise NotImplementedError(
                 "camera_sparse_adam is not ported yet (ROADMAP queue 1 item 6)")
@@ -237,6 +252,7 @@ class ThreeDGSTrainer:
                                time=store.time.to(self.device),
                                time_ind=store.time_ind.to(self.device))
         self.state = init_static_state(store, move(poses))
+        self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.active_sh_degree = 0
         self.fragment_profile: str | int = "lean"
         self._escalation = EscalationPoller()
@@ -275,6 +291,7 @@ class ThreeDGSTrainer:
             "pred_normal": out["rendered_normal"],
             "motion_mask": batch.motion_mask,
             "alive": state.store.alive,
+            "rng": self.gen,
         }
         total, loss_dict = self.loss(ctx, active)
         leaves = [*params, *poses, offset]
@@ -325,6 +342,32 @@ class ThreeDGSTrainer:
                    **aux["loss_dict"]}
         return new_state, metrics
 
+    def densify(self, state: StaticTrainState, max_screen_size):
+        """One densification pass over `state`; returns (state, info)."""
+        cfg = self.cfg
+        new_store, new_aux, new_stats, info = densify_and_prune(
+            state.store, {"mu_params": state.opt.mu, "nu_params": state.opt.nu},
+            state.stats, self.gen,
+            max_grad=cfg.densify_grad_threshold,
+            min_opacity=0.005,
+            extent=self.spatial_lr_scale,
+            percent_dense=cfg.percent_dense,
+            max_screen_size=max_screen_size,
+            isotropic=cfg.isotropic,
+            apply_screen_size_prune=cfg.apply_screen_size_prune,
+        )
+        new_opt = AdamState(mu=new_aux["mu_params"], nu=new_aux["nu_params"],
+                            count=state.opt.count)
+        return state._replace(store=new_store, opt=new_opt,
+                              stats=new_stats), info
+
+    def maybe_ramp_sh(self, iteration: int, start: int = 0, period: int = 1000):
+        """`oneupSHdegree` on its schedule: every `period` iterations after
+        `start` (the standalone static trainer's 1000 from 0)."""
+        if iteration > start and iteration % period == 0:
+            self.active_sh_degree = G.sh_degree_up(
+                self.active_sh_degree, self.cfg.sh_degree)
+
     def train_iteration(self, batch: FrameBatch, iteration: int) -> dict:
         active = self.loss.active_set(iteration)
         self.state, metrics = self.step(
@@ -336,14 +379,33 @@ class ThreeDGSTrainer:
         if wider is not None:
             self.fragment_profile = wider
         cfg = self.cfg
-        if iteration < cfg.densify_until_iter:
-            densify_due = (cfg.densification_interval != 0
-                           and iteration > cfg.densify_from_iter
-                           and iteration % cfg.densification_interval == 0)
-            reset_due = (cfg.opacity_reset_interval != 0
-                         and iteration % cfg.opacity_reset_interval == 0)
-            if densify_due or reset_due:
-                raise NotImplementedError(
-                    "densification / opacity reset are not ported yet "
-                    "(ROADMAP queue 1 item 7)")
+        if densify_due(cfg, iteration):
+            self.state, metrics["densify"] = self.densify(
+                self.state, screen_size_threshold(cfg, iteration))
+        if (iteration < cfg.densify_until_iter
+                and cfg.opacity_reset_interval != 0
+                and iteration % cfg.opacity_reset_interval == 0):
+            st = self.state
+            store, mu_op, nu_op = reset_opacity(
+                st.store, st.opt.mu.opacity, st.opt.nu.opacity)
+            self.state = st._replace(store=store, opt=st.opt._replace(
+                mu=st.opt.mu._replace(opacity=mu_op),
+                nu=st.opt.nu._replace(opacity=nu_op)))
         return metrics
+
+    def state_dict(self, iteration: int) -> dict[str, Any]:
+        """Checkpoint payload in the JAX package's layout."""
+        st = self.state
+        return {
+            "iteration": iteration,
+            "active_sh_degree": self.active_sh_degree,
+            "model": G.to_state_dict(st.store),
+            "optim": {
+                "max_radii2D": st.stats.max_radii2d,
+                "xyz_gradient_accum": st.stats.grad_accum,
+                "denom": st.stats.denom,
+                "adam": st.opt,
+            },
+            "camera": {"q_c2w": st.poses.q_c2w, "t_c2w": st.poses.t_c2w},
+            "spatial_lr_scale": self.spatial_lr_scale,
+        }

@@ -312,5 +312,9 @@ def test_render_grads_match():
         assert_scaled(a, b.grad.numpy(), name=name)
     assert_scaled(gj[5].q_c2w, tcam.q_c2w.grad.numpy(), name="q_c2w")
     assert_scaled(gj[5].t_c2w, tcam.t_c2w.grad.numpy(), name="t_c2w")
-    assert_scaled(gj[6], leaves[5].grad.numpy(), name="means2d_offset")
+    # the JAX package's offset gradient is dL/dpixel / (0.5*[W, H]); the
+    # port's is the reference's dL/dpixel * 0.5*[W, H]
+    ndc2 = np.array([[(0.5 * W) ** 2], [(0.5 * H) ** 2]], np.float32)
+    assert_scaled(np.asarray(gj[6]) * ndc2, leaves[5].grad.numpy(),
+                  name="means2d_offset")
     assert np.abs(tcam.q_c2w.grad.numpy()).max() > 0

@@ -24,10 +24,13 @@ from rodygs_tpu.train import optim as joptim
 from rodygs_tpu.train import trainer_static as jts
 from rodygs_tpu_torch import convert
 from rodygs_tpu_torch.models import gaussians as TG
+from rodygs_tpu_torch.models import motion as tmotion
 from rodygs_tpu_torch.render import camera as tcamera
 from rodygs_tpu_torch.train import densify as tdens
 from rodygs_tpu_torch.train import losses as tlosses
 from rodygs_tpu_torch.train import optim as toptim
+from rodygs_tpu_torch.train import trainer_dynamic as ttd
+from rodygs_tpu_torch.train import trainer_joint as ttj
 from rodygs_tpu_torch.train import trainer_static as tts
 from rodygs_tpu_torch.utils.platform import resolve_device
 
@@ -116,7 +119,7 @@ def test_multiloss_matches():
         assert sorted(jd) == sorted(td)
     assert tl.uses_normal == jl.uses_normal
     with pytest.raises(NotImplementedError):
-        tlosses.MultiLoss([tlosses.LossTerm("r", 1.0, "RigidityLoss")])
+        tlosses.MultiLoss([tlosses.LossTerm("n", 1.0, "NormalConsistencyLoss")])
 
 
 def test_escalation_poller_matches():
@@ -184,12 +187,39 @@ def test_resolve_device_refuses_missing_cuda():
         resolve_device(None)
 
 
+def _small_dyn_trainer(dev):
+    store = TG.from_point_cloud(np.random.default_rng(0).uniform(
+        -1, 1, (8, 3)).astype(np.float32), np.full((8, 3), 0.5, np.float32),
+        1, capacity=16, device="cpu")
+    cfg = ttd.DynTrainerConfig(sh_degree=1, deform_netwidth=8,
+                               deform_t_emb_multires=2, num_basis=2)
+    return ttd.DynTrainer(cfg, tlosses.MultiLoss([]), store, 1.0, device=dev)
+
+
+def _small_joint_trainer(dev):
+    store = TG.from_point_cloud(np.zeros((1, 3), np.float32),
+                                np.full((1, 3), 0.5, np.float32), 1,
+                                capacity=4, device="cpu")
+    poses = toptim.CameraPoses(torch.ones((1, 4)), torch.zeros((1, 3)))
+    static = tts.ThreeDGSTrainer(tts.StaticTrainerConfig(sh_degree=1),
+                                 tlosses.MultiLoss([]), store, poses, 1.0,
+                                 device=dev)
+    joint = ttj.RoDyGSTrainer(static, _small_dyn_trainer(dev))
+    return (toptim.tree_leaves(joint.static.state)
+            + toptim.tree_leaves(joint.dynamic.state))
+
+
 @pytest.mark.parametrize("make", [
     lambda dev: tcamera.make_camera([1.0, 0, 0, 0], [0.0, 0, 0], 0.9, 0.9,
                                     device=dev),
     lambda dev: tcamera.camera_from_w2c(np.eye(3), np.zeros(3), 0.9, 0.9,
                                         device=dev),
     lambda dev: tdens.init_stats(8, device=dev),
+    lambda dev: toptim.tree_leaves(tmotion.init_motion_params(
+        0, tmotion.MotionNetConfig(netwidth=8, num_basis=2, t_emb_multires=2),
+        device=dev)),
+    lambda dev: toptim.tree_leaves(_small_dyn_trainer(dev).state),
+    _small_joint_trainer,
 ])
 def test_constructors_default_to_cuda(make):
     assert all(x.device == torch.device("cpu") for x in make("cpu"))
@@ -276,6 +306,10 @@ def test_static_train_step_matches():
         assert_scaled(getattr(jgp, name), getattr(tgp, name).numpy(), name)
     assert_scaled(jgpose.q_c2w, tgpose.q_c2w.numpy(), "q_c2w")
     assert_scaled(jgpose.t_c2w, tgpose.t_c2w.numpy(), "t_c2w")
+    # the JAX package's offset gradient is dL/dpixel / (0.5*[W, H]); the
+    # port's is the reference's dL/dpixel * 0.5*[W, H]
+    ndc2 = np.array([[(0.5 * W) ** 2], [(0.5 * H) ** 2]], np.float32)
+    jgoff = np.asarray(jgoff) * ndc2
     assert_scaled(jgoff, tgoff.numpy(), "means2d_offset")
     assert np.abs(tgpose.q_c2w.numpy()).max() > 0
 
@@ -310,7 +344,8 @@ def test_static_train_step_matches():
         np.testing.assert_allclose(getattr(tsn.poses, name).numpy()[mask],
                                    np.asarray(getattr(js.poses, name))[mask],
                                    rtol=1e-6, atol=1e-7, err_msg=name)
-    assert_scaled(js.stats.grad_accum, tsn.stats.grad_accum.numpy())
+    assert_scaled(np.sqrt((jgoff ** 2).sum(0)) * np.asarray(js.stats.denom),
+                  tsn.stats.grad_accum.numpy())
     np.testing.assert_array_equal(tsn.stats.denom.numpy(),
                                   np.asarray(js.stats.denom))
     np.testing.assert_array_equal(tsn.stats.max_radii2d.numpy(),
