@@ -57,8 +57,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
   5b. 1080p  — one captured 1920x1080 render of 240,000 seeded gaussians in
                rows mode (8,160 tiles, 40-row table): expand and segsum
                against their plain versions, slot ranges, warm and cold
-               times and bounds. The tile kernels' plain versions are not
-               run at this size.
+               times and bounds. The tile kernels' plain versions run at
+               this size in phase 7, on the banded binnings.
   6. joint   — the joint RoDyGS iteration of the kubric config
                (`KUBRIC_*`, configs/train/train_kubric_mrig.yaml:103-239) at
                512x512: the bench static set (100k in 131,072 slots) and
@@ -76,9 +76,36 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
                concatenated static + deformed dynamic set, and
                torch.profiler over 5 joint iterations (one with rigidity)
                and over one densification call of each model.
-  7. report  — the card's name and power limit (nvidia-smi), one JSON line
-               of per-kernel numbers (`launches_joint`: launches in phase 6),
-               and last {"ok": true, "device": ...}.
+  7. eval    — the evaluator on the joint phase's end state: both
+               checkpoints through `RoDyGSTrainer.save_checkpoints`, a test
+               set of 4 views halfway between the train cameras (GT: the
+               joint GT render + noise), `RoDyGSEvaluator.eval` without
+               alignment (configs/eval/eval_wo_align.yaml) in chunks of 2;
+               then with alignment (eval_w_align.yaml: camera lr 5e-5, 1000
+               steps) on 2 views, each view's optimisation synchronised and
+               timed. Launch counters are zeroed just before each eval()
+               call and read just after it. Outside the calls: the views
+               rendered again at the settled profile, the photometric L2 at
+               each aligned view's start and end pose, the median of 50
+               synchronised pose steps, torch.profiler over 20 pose steps,
+               the four kernels against their plain versions on a pose
+               step's render; LPIPS (both nets, seeded random weights) on
+               one 512x512 pair on the card against the CPU; the 1080p state
+               of phase 5b rendered with its gradients at profile "huge"
+               with 1, 2 and 4 sort bands (counters zeroed just before and
+               read just after: expand and segsum launch once a band), then
+               the four kernels against their plain versions on its 2- and
+               4-band binnings (expand and segsum on every band, the tile
+               kernels on the bands' concatenated records). Requires finite
+               metrics, no dropped fragments at the settled profile, PNGs
+               that decode to the images, the L2 falling on every aligned
+               view, LPIPS within 1e-4 relative, banded images bit-identical
+               to one band's and every kernel launched inside eval().
+  8. report  — the card's name and power limit (nvidia-smi), one JSON line
+               of per-kernel numbers (`launches_joint`: launches in phase 6;
+               `launches_eval`: inside the two eval() calls of phase 7;
+               `launches_bands`: in its three banded renders), and last
+               {"ok": true, "device": ...}.
 
 Without CUDA, or run from a directory without the package, it exits with
 a non-zero code before printing any result. Imports neither JAX nor the
@@ -93,6 +120,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -807,7 +835,7 @@ def phase_profile(trainer, batch_for, first_iteration, cap, steps=5):
 # --------------------------------------------------------------------------
 
 # configs/train/train_kubric_mrig.yaml:103-239, the trainer block, spelled
-# out (the card has no PyYAML). Changed from the file: the image size, the
+# out so the phase reads no config file. Changed from the file: the image size, the
 # store sizes and the iteration window (JOINT_REDUCED).
 KUBRIC_STATIC_LOSSES = [
     {"name": "d_ssim", "weight": 0.2, "target": "src.trainer.losses.SSIMLoss",
@@ -925,16 +953,21 @@ def joint_trainer(device, size=512, n_static=100_000, cap_static=131072,
         return render(p.xyz, G.get_features(p), G.get_opacity(p),
                       G.get_scaling(p), p.rotation, cam, 3, W, H, alive=alive)
 
+    @torch.no_grad()
+    def gt_render(cam, t):
+        """The GT static set plus the GT dynamic set moved to time t."""
+        moved = gt_dyn._replace(xyz=gt_dyn.xyz + vel_t * t)
+        both = G.GaussianParams(*[torch.cat(x)
+                                  for x in zip(static.params, moved)])
+        return draw(both, torch.cat([static.alive, dyn.alive]), cam), moved
+
     gt_rng = np.random.default_rng(11)
     frames = []
     with torch.no_grad():
         for i, t in enumerate(times):
             cam = make_camera(poses.q_c2w[i], poses.t_c2w[i], fov, fov, t,
                               device=device)
-            moved = gt_dyn._replace(xyz=gt_dyn.xyz + vel_t * t)
-            both = G.GaussianParams(*[torch.cat(x)
-                                      for x in zip(static.params, moved)])
-            out = draw(both, torch.cat([static.alive, dyn.alive]), cam)
+            out, moved = gt_render(cam, t)
             img = out["rendered_image"].cpu().numpy()
             img = np.clip(img + gt_rng.normal(0, 0.05, img.shape), 0.0, 1.0)
             depth = out["rendered_depth"].cpu().numpy()
@@ -956,7 +989,9 @@ def joint_trainer(device, size=512, n_static=100_000, cap_static=131072,
     dt = DynTrainer(d_cfg, MultiLoss.from_config(KUBRIC_DYNAMIC_LOSSES), dyn,
                     spatial_lr_scale=4.0, seed=2, device=device)
     joint = RoDyGSTrainer(st, dt, **KUBRIC_JOINT)
-    return joint, (lambda i: frames[i % n_frames]), (W, H)
+    gt_poses = CameraPoses(*[x.clone() for x in poses])
+    return joint, (lambda i: frames[i % n_frames]), (W, H), (gt_render,
+                                                            gt_poses)
 
 
 def _alive(trainer):
@@ -968,8 +1003,9 @@ def _alive(trainer):
 def phase_joint(device, **scene):
     """Joint iterations 481-640 (static step, static densify, dynamic step,
     dynamic densify) on the joint scene; checks, then the kernels on the
-    concatenated render of frame 0, then the profiler. Returns
-    ({kernel: launches}, {kernel: max_abs_err})."""
+    concatenated render of frame 0, then the profiler (5 more iterations).
+    Returns ({kernel: launches}, {kernel: max_abs_err}, the end state:
+    dict(joint, gt_render, gt_poses, size, iteration))."""
     import torch
     from rodygs_tpu_torch import kernel_check as KC
     from rodygs_tpu_torch import kernels
@@ -979,7 +1015,8 @@ def phase_joint(device, **scene):
     from rodygs_tpu_torch.train.trainer_static import make_camera_from_poses
 
     t_phase = time.perf_counter()
-    joint, batch_for, (W, H) = joint_trainer(device, **scene)
+    joint, batch_for, (W, H), (gt_render, gt_poses) = joint_trainer(
+        device, **scene)
     torch.cuda.synchronize()
     log(f"[joint] set-up {time.perf_counter() - t_phase:.2f} s; reduced from "
         f"the config: {'; '.join(JOINT_REDUCED)}")
@@ -1144,7 +1181,419 @@ def phase_joint(device, **scene):
             f"({G.capacity_of(trainer.state.store)} slots): {ms:.4f} ms of "
             f"device time")
     log(f"[joint] phase {time.perf_counter() - t_phase:.2f} s")
+    return launches, errs, dict(joint=joint, gt_render=gt_render,
+                                gt_poses=gt_poses, size=(W, H),
+                                iteration=last + steps)
+
+
+# --------------------------------------------------------------------------
+# the evaluator
+# --------------------------------------------------------------------------
+
+# configs/eval/eval_wo_align.yaml and eval_w_align.yaml, spelled out
+EVAL_WO_ALIGN = dict(camera_lr=-1, num_opts=-1)
+EVAL_W_ALIGN = dict(camera_lr=5e-5, num_opts=1000)
+EVAL_VIEWS = (0, 2, 4, 6)       # test view i: halfway between train i, i+1
+EVAL_ALIGNED_VIEWS = 2
+LPIPS_SIZE = 512
+
+
+class InMemoryData:
+    """The evaluator's duck-typed datamodule (test frames with their poses,
+    the calibrated train poses, the scene radius), held in memory."""
+
+    def __init__(self, frames, q_c2w, t_c2w, train_poses, radius):
+        self.frames, self.q_c2w, self.t_c2w = frames, q_c2w, t_c2w
+        self.image_height, self.image_width = frames[0]["image"].shape[:2]
+        self._train_poses, self._radius = train_poses, radius
+        self.skip_dynamic = False
+
+    def __len__(self):
+        return len(self.frames)
+
+    def __getitem__(self, idx):
+        return self.frames[idx]
+
+    def get_test_dset(self):
+        return self
+
+    def get_test_sampler(self):
+        return list(range(len(self.frames)))
+
+    def get_train_poses(self):
+        return self._train_poses
+
+    def get_normalization(self):
+        return {"radius": self._radius}
+
+
+def c2w_matrices(q, t) -> np.ndarray:
+    """[F, 4, 4] c2w from quaternions [F, 4] and translations [F, 3]."""
+    import torch
+    from rodygs_tpu_torch.ops.quaternion import quat_to_matrix
+
+    out = np.tile(np.eye(4, dtype=np.float32), (len(q), 1, 1))
+    out[:, :3, :3] = quat_to_matrix(torch.as_tensor(q).cpu()).numpy()
+    out[:, :3, 3] = torch.as_tensor(t).cpu().numpy()
+    return out
+
+
+def make_test_views(gt_render, views, device, fov=0.9, n_frames=8, seed=17):
+    """Test frames halfway between the train cameras on the +-0.2 rad arc,
+    at times (2i+1)/14; GT is the joint phase's GT render + N(0, 0.05)."""
+    from rodygs_tpu_torch.render.camera import make_camera
+
+    rng = np.random.default_rng(seed)
+    edges = np.linspace(-0.2, 0.2, n_frames)
+    q, t, frames = [], [], []
+    for i in views:
+        ang = 0.5 * (edges[i] + edges[i + 1])
+        time_i = (2 * i + 1) / (2 * (n_frames - 1))
+        q.append([np.cos(ang / 2), 0, np.sin(ang / 2), 0])
+        t.append([np.sin(ang) * 4.0, 0, 0])
+        cam = make_camera(q[-1], t[-1], fov, fov, time_i, device=device)
+        img = gt_render(cam, time_i)[0]["rendered_image"].cpu().numpy()
+        frames.append({"image": np.clip(img + rng.normal(0, 0.05, img.shape),
+                                        0, 1).astype(np.float32),
+                       "image_name": f"test{i}", "time": time_i,
+                       "fovx": fov, "fovy": fov})
+    return frames, np.asarray(q, np.float32), np.asarray(t, np.float32)
+
+
+def eval_without_alignment(device, dirpath, ckpts, data, out):
+    """RoDyGSEvaluator.eval(eval_batch_size=2) over the test views, timed
+    and counted as a user calls it. After it, each view is rendered again
+    at the settled profile: it must drop nothing and give the stored PNG.
+    Returns the kernels' launches inside eval()."""
+    import cv2
+    import torch
+    import yaml
+    from rodygs_tpu_torch import kernels
+    from rodygs_tpu_torch.evalsuite.evaluator import RoDyGSEvaluator
+    from rodygs_tpu_torch.render.camera import make_camera
+    from rodygs_tpu_torch.utils.store import to_u16
+
+    ev = RoDyGSEvaluator(dirpath, data, data, out, *ckpts, device=device,
+                         **EVAL_WO_ALIGN)
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    result = ev.eval(eval_batch_size=2)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    log(f"[eval] result {json.dumps(result)}")
+    timing, b = result["timing"], result["timing"]["eval_batch_size"]
+    steady = timing["render_s_per_view_steady"]
+    first = (timing["render_s_total"] - steady * (len(data) - b)) / b
+    log(f"[eval] eval() {secs:.3f} s for {len(data)} views; render ms per "
+        f"view as result.yaml reports them (render, copy to the host): "
+        f"first chunk {1e3 * first:.2f}, steady (the chunks after the "
+        f"first) {1e3 * steady:.2f}; settled fragment profile "
+        f"{ev.fragment_profile!r}; launches inside eval() {launches}")
+    viz = result["viz"]
+    require(all(math.isfinite(v) for v in viz.values()), f"metric {viz}")
+    require(all(math.isfinite(v) for v in result["pose"].values()),
+            f"pose metrics {result['pose']}")
+    again = []
+    for i, f in enumerate(data.frames):
+        cam = make_camera(data.q_c2w[i], data.t_c2w[i], f["fovx"], f["fovy"],
+                          f["time"], device=device)
+        o = ev.render_view(cam)
+        again.append(dict(dropped=int(o["dropped"]),
+                          demand=int(o["num_fragments"]),
+                          image=o["rendered_image"].cpu().numpy()))
+    log("[eval] the views again at the settled profile: " + "; ".join(
+        f"t={f['time']:.4f} demand={r['demand']} dropped={r['dropped']}"
+        for f, r in zip(data.frames, again)))
+    require(all(r["dropped"] == 0 for r in again),
+            "a view drops fragments at the settled profile")
+    for sub in ("gt", "pred"):
+        for i, f in enumerate(data.frames):
+            name = f"{str(i).zfill(5)}_{f['image_name']}.png"
+            img = cv2.imread(str(out / sub / "viz" / name),
+                             cv2.IMREAD_UNCHANGED)
+            src = f["image"] if sub == "gt" else again[i]["image"]
+            require(img is not None and np.array_equal(img[..., ::-1],
+                                                       to_u16(src)),
+                    f"{sub}/{name} does not decode to the image")
+    text = (out / "result.yaml").read_text()
+    require(yaml.safe_load(text) == result, "result.yaml is not the result")
+    log(f"[eval] {2 * len(data)} PNG files decode to the images; "
+        f"result.yaml ({len(text.splitlines())} lines) loads back to the "
+        f"result")
+    return launches
+
+
+def eval_with_alignment(device, dirpath, ckpts, data, out, steps=50):
+    """eval() with test-time pose optimisation at the config's values, timed
+    and counted as a user calls it; each view's optimisation is timed at
+    the boundary of PoseOptimizer.optimize (synchronised) and its start and
+    end pose kept. After eval(): each view's photometric L2 at both poses,
+    the median of `steps` synchronised pose steps, torch.profiler over 20
+    steps, and the four kernels against their plain versions on a
+    pose-step render. Returns (the kernels' launches inside eval(),
+    {kernel: max_abs_err})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from rodygs_tpu_torch import kernel_check as KC
+    from rodygs_tpu_torch import kernels
+    from rodygs_tpu_torch.evalsuite.evaluator import RoDyGSEvaluator
+    from rodygs_tpu_torch.evalsuite.pose_opt import PoseOptimizer
+    from rodygs_tpu_torch.render.binning import tile_grid
+    from rodygs_tpu_torch.render.rasterize import _default_tight
+    from rodygs_tpu_torch.train.optim import adam_init
+
+    ev = RoDyGSEvaluator(dirpath, data, data, out, *ckpts, device=device,
+                         **EVAL_W_ALIGN)
+    po = ev.pose_optimizer
+    views, optimize = [], po.optimize
+
+    def timed(q0, t0, camera, gt):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        q, t = optimize(q0, t0, camera, gt)
+        torch.cuda.synchronize()
+        views.append(dict(s=time.perf_counter() - t1, start=(q0, t0),
+                          end=(q, t), camera=camera, gt=gt))
+        return q, t
+
+    po.optimize = timed
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    result = ev.eval(eval_batch_size=2)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    po.optimize = optimize
+    n_opts = EVAL_W_ALIGN["num_opts"]
+    log(f"[eval align] result {json.dumps(result)}")
+    log(f"[eval align] eval() {secs:.2f} s for {len(data)} views x {n_opts} "
+        f"pose steps; each view's optimisation: " + ", ".join(
+            f"{v['s']:.3f} s ({1e3 * v['s'] / n_opts:.3f} ms a step)"
+            for v in views) + f"; launches inside eval() {launches}")
+    require(all(math.isfinite(v) for v in result["viz"].values()),
+            f"metric {result['viz']}")
+
+    def cost(v, q, t):
+        pred = po.render_fn(v["camera"]._replace(q_c2w=q, t_c2w=t))
+        return float(torch.mean((pred - v["gt"]) ** 2))
+
+    with torch.no_grad():
+        l2 = [(cost(v, *v["start"]), cost(v, *v["end"])) for v in views]
+    for i, (b, a) in enumerate(l2):
+        log(f"[eval align] view {i}: photometric L2 {b:.6f} -> {a:.6f}")
+    require(len(l2) == len(data) and all(a < b for b, a in l2),
+            f"the photometric L2 did not fall on every view: {l2}")
+
+    v = views[0]
+    pose, opt, step_ms = v["start"], adam_init(v["start"]), []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        pose, opt, _ = po.step(pose, opt, v["camera"], v["gt"])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t1) * 1e3)
+    log(f"[eval align] {steps} synchronised pose steps of view 0: median "
+        f"{np.median(step_ms):.3f} ms, p90 {np.percentile(step_ms, 90):.3f}, "
+        f"min {min(step_ms):.3f}")
+    prof_po = PoseOptimizer(po.calibrated_poses, po.uncalibrated_poses,
+                            po.render_fn, po.camera_lr, 20)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        prof_po.optimize(*v["start"], v["camera"], v["gt"])
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3 / 20
+    device_summary(prof, 20, wall_ms, "eval profile", top=10)
+
+    st = ev.static_store
+    tx, ty = tile_grid(ev.image_width, ev.image_height)
+    cam = v["camera"]._replace(q_c2w=v["end"][0], t_c2w=v["end"][1])
+    s = KC.capture_stages(st.params, st.alive, cam, ev.active_sh_degree,
+                          ev.image_width, ev.image_height, "lean",
+                          _default_tight(tx * ty), 3)
+    errs = KC.check_stages(s)
+    log(f"[eval align] the static set at view 0's end pose (the pose "
+        f"step's render, {int(s['cb'].num_fragments)} fragments): "
+        f"max_abs_err={errs}")
     return launches, errs
+
+
+def check_lpips_on_card(device, path):
+    """Both nets on one LPIPS_SIZE^2 pair, on the card and on the CPU."""
+    import torch
+    from rodygs_tpu_torch.evalsuite.lpips import lpips_fn
+
+    rng = np.random.default_rng(5)
+    a = rng.uniform(size=(LPIPS_SIZE, LPIPS_SIZE, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    for net in ("alex", "vgg"):
+        card, cpu = lpips_fn(net, path, device), lpips_fn(net, path, "cpu")
+        ta, tb = torch.tensor(a, device=device), torch.tensor(b, device=device)
+        v_card = float(card(ta, tb))
+        ms = time_ms(lambda: card(ta, tb), reps=5)
+        t0 = time.perf_counter()
+        v_cpu = float(cpu(a, b))
+        cpu_s = time.perf_counter() - t0
+        rel = abs(v_card - v_cpu) / abs(v_cpu)
+        log(f"[eval lpips] {net} {LPIPS_SIZE}x{LPIPS_SIZE}: card {v_card:.8f} "
+            f"({ms:.3f} ms a pair), cpu {v_cpu:.8f} ({cpu_s:.2f} s), "
+            f"relative difference {rel:.3g} (tol 1e-4)")
+        require(rel <= 1e-4, f"LPIPS {net} differs between card and CPU")
+
+
+def render_sort_bands(device, n=240_000, width=1920, height=1080):
+    """The 1080p phase's state rendered in rows mode at profile "huge" with
+    1, 2 and 4 sort bands: the images must keep their bits, the gradients
+    of means3d, opacity and the pose agree within 5e-4 of their maximum;
+    expand and segsum launch once a band. Returns (params, camera, demand)
+    for `check_band_kernels` and the kernels' launches in the renders."""
+    import torch
+    from rodygs_tpu_torch import kernel_check as KC
+    from rodygs_tpu_torch import kernels
+    from rodygs_tpu_torch.models import gaussians as G
+    from rodygs_tpu_torch.render.rasterize import render
+
+    params, cam = KC.random_scene(n, 5, device, log_scale=(-5.6, -4.2))
+    target = torch.rand((height, width, 3), device=device,
+                        generator=torch.Generator(device=device).manual_seed(9))
+    outs = {}
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    for bands in (1, 2, 4):
+        leaves = [params.xyz.clone().requires_grad_(True),
+                  params.opacity.clone().requires_grad_(True)]
+        q = cam.q_c2w.clone().requires_grad_(True)
+        t = cam.t_c2w.clone().requires_grad_(True)
+        p = params._replace(xyz=leaves[0], opacity=leaves[1])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = render(p.xyz, G.get_features(p), G.get_opacity(p),
+                   G.get_scaling(p), p.rotation,
+                   cam._replace(q_c2w=q, t_c2w=t), 3, width, height,
+                   fragment_profile="huge", tight_rect="rows",
+                   include_normal=False, sort_bands=bands)
+        torch.mean((o["rendered_image"] - target) ** 2).backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        outs[bands] = dict(image=o["rendered_image"].detach(),
+                           grads=[leaves[0].grad, leaves[1].grad, q.grad,
+                                  t.grad], demand=int(o["num_fragments"]),
+                           dropped=int(o["dropped"]))
+        log(f"[eval bands] {width}x{height} n={n} rows, 'huge', bands="
+            f"{bands}: forward+backward {ms:.1f} ms (first call), demand "
+            f"{outs[bands]['demand']} dropped {outs[bands]['dropped']}")
+    launches = dict(kernels.LAUNCHES)
+    log(f"[eval bands] launches in the three renders: {launches}")
+    require(launches == dict(expand=1 + 2 + 4, tile_fwd=3, tile_bwd=3,
+                             segsum=1 + 2 + 4),
+            "expand and segsum do not launch once a band")
+    ref = outs[1]
+    for bands in (2, 4):
+        require(torch.equal(outs[bands]["image"], ref["image"]),
+                f"the image of {bands} bands differs from one band's")
+        errs = []
+        for name, a, b in zip(("means3d", "opacity", "q", "t"),
+                              ref["grads"], outs[bands]["grads"]):
+            e = float((a - b).abs().max()) / (float(a.abs().max()) + 1e-30)
+            require(e <= 5e-4, f"{bands} bands: {name} gradient {e:.3g}")
+            errs.append(f"{name} {e:.3g}")
+        log(f"[eval bands] bands={bands}: image bit-identical to 1 band; "
+            f"gradient / max: {', '.join(errs)}")
+    return (params, cam, ref["demand"]), launches
+
+
+def check_band_kernels(params, cam, demand, width=1920, height=1080):
+    """The four kernels on the 1080p state's binning at 2 and 4 bands
+    against their plain versions: expand and segsum on every band, the tile
+    kernels on the bands' concatenated records. Returns {kernel:
+    max_abs_err}."""
+    import torch
+
+    from rodygs_tpu_torch import kernel_check as KC
+    from rodygs_tpu_torch.evalsuite.evaluator import eval_fit_profile
+
+    n = params.xyz.shape[0]
+    kerrs = {}
+    for bands in (2, 4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        e, cb = KC.check_bands(params, None, cam, 3, width, height, "huge",
+                               "rows", bands)
+        log(f"[eval bands] {bands} bands (f_kept {cb.f_kept.tolist()} of "
+            f"{cb.bases.shape[1] * 512} slots a band, tile counts max "
+            f"{int(cb.tile_counts.max())}): expand and segsum on each band, "
+            f"the tile kernels on the concatenated records: max_abs_err={e}; "
+            f"segsum and tile_bwd twice: equal bits "
+            f"({time.perf_counter() - t0:.2f} s)")
+        del cb
+        torch.cuda.empty_cache()
+        for k, v in e.items():
+            kerrs[k] = max(kerrs.get(k, 0.0), v)
+    log(f"[eval bands] eval_fit_profile for this state ({n} gaussians, "
+        f"demand {demand}, from 'huge'): "
+        f"{eval_fit_profile(n, demand, 'huge')!r}")
+    return kerrs
+
+
+def phase_eval(device, state):
+    """The evaluator on the joint phase's end state (8): checkpoints through
+    RoDyGSTrainer.save_checkpoints, 4 test views without alignment, 2 with
+    it at the config's 1000 steps, LPIPS on the card against the CPU, the
+    1080p state at 1, 2 and 4 sort bands. Returns ({kernel: launches
+    inside the two eval() calls}, {kernel: launches in the banded
+    renders}, {kernel: max_abs_err})."""
+    import shutil
+    import tempfile
+    import torch
+    from rodygs_tpu_torch import kernels
+    from rodygs_tpu_torch.evalsuite.lpips import write_random_weights
+
+    t_phase = time.perf_counter()
+    joint = state["joint"]
+    root = Path(tempfile.mkdtemp(prefix="rodygs_eval_"))
+    try:
+        joint.logdir = root / "ckpt"
+        t0 = time.perf_counter()
+        joint.save_checkpoints(state["iteration"])
+        ckpts = (root / "ckpt" / "static_last.ckpt",
+                 root / "ckpt" / "dynamic_last.ckpt")
+        log(f"[eval] checkpoints of iteration {state['iteration']} written "
+            f"in {time.perf_counter() - t0:.2f} s: " + ", ".join(
+                f"{p.name} {p.stat().st_size / 2**20:.1f} MiB" for p in ckpts))
+        frames, q, t = make_test_views(state["gt_render"], EVAL_VIEWS, device)
+        gq, gt = state["gt_poses"]
+        with open(root / "train_transforms.json", "w") as f:
+            json.dump({"camera_angle_x": float(np.rad2deg(0.9)),
+                       "frames": [{"transform_matrix": m.tolist()}
+                                  for m in c2w_matrices(gq, gt)]}, f)
+        st = joint.static.state
+        calibrated = c2w_matrices(st.poses.q_c2w, st.poses.t_c2w)
+        data = InMemoryData(frames, q, t, calibrated, 4.0)
+        wo = eval_without_alignment(device, str(root), ckpts, data,
+                                    root / "wo")
+        k = EVAL_ALIGNED_VIEWS
+        aligned = InMemoryData(frames[:k], q[:k], t[:k], calibrated, 4.0)
+        w, errs = eval_with_alignment(device, str(root), ckpts, aligned,
+                                      root / "w")
+        write_random_weights(root / "lpips.npz")
+        check_lpips_on_card(device, str(root / "lpips.npz"))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {k: wo[k] + w[k] for k in kernels.KERNELS}
+    log(f"[eval] launches inside the two eval() calls: {launches}")
+    require(all(launches[k] > 0 for k in kernels.KERNELS),
+            f"a kernel never launched inside eval(): {launches}")
+    torch.cuda.empty_cache()
+    banded, launches_bands = render_sort_bands(device)
+    for name, e in check_band_kernels(*banded).items():
+        errs[name] = max(errs.get(name, 0.0), e)
+    log(f"[eval] max_abs_err in the phase {errs}; phase "
+        f"{time.perf_counter() - t_phase:.2f} s")
+    return launches, launches_bands, errs
 
 
 def main() -> int:
@@ -1192,7 +1641,8 @@ def main() -> int:
     e1080, t1080 = phase_1080p(device)
     del trainer, st
     torch.cuda.empty_cache()
-    launches_joint, e_joint = phase_joint(device)
+    launches_joint, e_joint, joint_end = phase_joint(device)
+    launches_eval, launches_bands, e_eval = phase_eval(device, joint_end)
 
     rows = []
     for name in kernels.KERNELS:
@@ -1201,8 +1651,11 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
                      "launches_joint": launches_joint[name],
+                     "launches_eval": launches_eval[name],
+                     "launches_bands": launches_bands[name],
                      "max_abs_err": max(errs[name], e512[name],
-                                        e1080.get(name, 0.0), e_joint[name]),
+                                        e1080.get(name, 0.0), e_joint[name],
+                                        e_eval[name]),
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
@@ -1215,7 +1668,9 @@ def main() -> int:
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), launches in "
             f"{iterations} steps "
             f"{launches[name]}, in {JOINT_ITERATIONS[1] - JOINT_ITERATIONS[0] + 1} "
-            f"joint iterations {launches_joint[name]}")
+            f"joint iterations {launches_joint[name]}, inside eval() "
+            f"{launches_eval[name]}, in the banded renders "
+            f"{launches_bands[name]}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -5,8 +5,9 @@ Mirrors the JAX package's module layout (`rodygs_tpu/render/compact.py` <->
 rasterizer are hand-written CUDA C++ kernels for Hopper (`csrc/`), built
 from source at first use (`kernels.py`); every other op is plain PyTorch.
 
-The package imports torch, numpy and the standard library only — never
-`jax` and nothing of `rodygs_tpu`. Entry points run on `cuda` unless the
+The package imports torch, numpy, scipy (the pose metrics), PyYAML (the
+evaluator's result.yaml) and the standard library only — never `jax` and
+nothing of `rodygs_tpu`. Entry points run on `cuda` unless the
 caller passes `device="cpu"` (utils/platform.resolve_device).
 """
 

@@ -8,7 +8,8 @@ version on the same inputs and raises `KernelMismatch` past the stated
 tolerance. `check_tiles` does so for the two tile kernels on any ranges,
 `synthetic_tiles` makes ranges of chosen lengths. `check_fragment_kernels`
 holds expand and segsum alone against theirs (segsum twice for equal
-bits), `synthetic_ranges` makes their inputs from chosen slot counts per
+bits), `check_bands` holds all four on a banded binning,
+`synthetic_ranges` makes their inputs from chosen slot counts per
 gaussian, `slot_stats` describes the slot ranges both walk, and
 `poisoned_expand` fills every record the expand contract leaves unwritten
 with NaN. `needed_pairs` counts the
@@ -82,6 +83,20 @@ def random_scene(n: int, seed: int, device, opacity=(0.2, 0.95),
     return params, cam
 
 
+def _splat_rows(params: G.GaussianParams, alive, camera, sh_degree: int,
+                width: int, height: int):
+    """(tiles_x, tiles_y, splats, rec13 [13, Nw]) of one view."""
+    tx, ty = tile_grid(width, height)
+    splats = preprocess(params.xyz, G.get_scaling(params), params.rotation,
+                        G.get_opacity(params), G.get_features(params),
+                        sh_degree, camera, width, height, alive=alive)
+    n = splats.mean2d.shape[1]
+    rec13 = torch.nn.functional.pad(torch.cat(
+        [splats.mean2d, splats.conic, splats.opacity[None], splats.rgb,
+         splats.depth[None], splats.normal], 0), (0, C.padded_width(n) - n))
+    return tx, ty, splats, rec13
+
+
 @torch.no_grad()
 def capture_stages(params: G.GaussianParams, alive, camera, sh_degree: int,
                    width: int, height: int, profile, tight, seed: int,
@@ -89,16 +104,11 @@ def capture_stages(params: G.GaussianParams, alive, camera, sh_degree: int,
     """One render's kernel inputs and outputs; the cotangent is seeded normal
     noise. include_normal=False leaves the normal rows out of the sort and
     tells the tile kernels so, as the trainer renders."""
-    tx, ty = tile_grid(width, height)
-    splats = preprocess(params.xyz, G.get_scaling(params), params.rotation,
-                        G.get_opacity(params), G.get_features(params),
-                        sh_degree, camera, width, height, alive=alive)
+    tx, ty, splats, rec13 = _splat_rows(params, alive, camera, sh_degree,
+                                        width, height)
     n = splats.mean2d.shape[1]
     cb = C.build_binning(splats, tx, ty, C.fragment_capacity(n, profile),
                          tight=tight)
-    rec13 = torch.nn.functional.pad(torch.cat(
-        [splats.mean2d, splats.conic, splats.opacity[None], splats.rgb,
-         splats.depth[None], splats.normal], 0), (0, C.padded_width(n) - n))
     table = C.build_table(rec13, cb.aux_rows).contiguous()
     db = C.depth_key_bits(tx, ty)
     n_rows = C.NUM_REC_ROWS if include_normal else C.N_CORE_ROWS
@@ -117,6 +127,46 @@ def capture_stages(params: G.GaussianParams, alive, camera, sh_degree: int,
     return dict(tx=tx, db=db, cb=cb, table=table, key=key, rec=rec,
                 records=records, off=off, out=out, gout=gout,
                 d_presort=d_presort, include_normal=include_normal)
+
+
+@torch.no_grad()
+def check_bands(params: G.GaussianParams, alive, camera, sh_degree: int,
+                width: int, height: int, profile, tight, bands: int,
+                seed: int = 1):
+    """All four kernels on one view's banded binning against their plain
+    versions: expand and segsum on every band (`check_fragment_kernels`:
+    keys equal in every slot of the band, segsum within TOL_SEGSUM_SCALED
+    of its maximum and the same bits twice) on seeded normal gradient rows,
+    then the two tile kernels (`check_tiles`) on the bands' sorted records
+    concatenated as the render lays them out: band b's ranges start at
+    b * its capacity, and the slots past its f_kept hold whatever expand
+    left there. Returns ({kernel: max_abs_err over the bands}, the
+    CompactBinning)."""
+    tx, ty, splats, rec13 = _splat_rows(params, alive, camera, sh_degree,
+                                        width, height)
+    n = splats.mean2d.shape[1]
+    cb = C.build_binning(splats, tx, ty, C.fragment_capacity(n, profile),
+                         tight=tight, bands=bands)
+    _require(cb.f_kept.dim() == 1, "the binning is not banded")
+    db = C.depth_key_bits(tx, ty)
+    gen = torch.Generator(device=rec13.device).manual_seed(seed)
+    errs, rows = {}, []
+    for b in range(cb.f_kept.shape[0]):
+        table = C.build_table(rec13, cb.aux_rows[b]).contiguous()
+        d = torch.randn((C.N_CORE_ROWS, cb.bases.shape[1] * C.FCHUNK),
+                        generator=gen, device=rec13.device)
+        key, rec = C.expand_fragments(table, cb.bases[b], cb.f_kept[b], tx,
+                                      db, C.N_CORE_ROWS)
+        for k, v in check_fragment_kernels(table, cb.bases[b], cb.f_kept[b],
+                                           tx, db, d, key=key,
+                                           rec=rec).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+        rows.append(C.sort_fragments(key, rec)[1])
+    off = torch.zeros((1,), dtype=torch.int32, device=rec13.device)
+    errs.update(check_tiles(C.stack_records(torch.cat(rows, dim=1)),
+                            cb.tile_starts, cb.tile_counts, off, tx, False,
+                            seed=seed))
+    return errs, cb
 
 
 @torch.no_grad()

@@ -1,6 +1,6 @@
 """Image-space loss math on channels-last [H, W, C] images: L1, windowed
-SSIM, Pearson depth correlation and Charbonnier. Port of
-`rodygs_tpu/ops/image.py` (all but `l2_loss` and `psnr`).
+SSIM, PSNR, Pearson depth correlation and Charbonnier. Port of
+`rodygs_tpu/ops/image.py` (all but `l2_loss`).
 
 SSIM uses the 11-tap sigma-1.5 separable Gaussian window with C1=0.01^2,
 C2=0.03^2, and zero-padded borders. The separable blur is two banded-matrix
@@ -80,6 +80,13 @@ def ssim(img1: torch.Tensor, img2: torch.Tensor, window_size: int = 11,
     ssim_map = ((2 * mu12 + c1) * (2 * sigma12 + c2)) / (
         (mu1_sq + mu2_sq + c1) * (sigma1_sq + sigma2_sq + c2))
     return torch.mean(ssim_map)
+
+
+def psnr(pred: torch.Tensor, gt: torch.Tensor,
+         max_val: float = 1.0) -> torch.Tensor:
+    """Peak signal-to-noise ratio in dB; the MSE is floored at 1e-12."""
+    mse = torch.mean((pred - gt) ** 2)
+    return 10.0 * torch.log10(max_val**2 / torch.clamp(mse, min=1e-12))
 
 
 def pearson_rows(pred: torch.Tensor, gt: torch.Tensor,

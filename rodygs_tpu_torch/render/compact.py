@@ -20,8 +20,15 @@ expand writes a key for every slot but records only for the slots that
 carry a fragment (`expand_fragments`); segsum writes every output element
 itself, so neither wrapper fills anything beforehand.
 
-Not ported in this module yet: sort bands (`bands > 1`), the bf16 payload
-and the `fwd_records` / `bwd_unsort` variants.
+Sort bands (`build_binning(bands > 1)`) split the structure into
+contiguous tile-row ranges, each with its own gaussian-major enumeration
+over `cap_band` slots: expand, the sort, the unsort and segsum then run
+once per band, and the sorted blocks concatenate into the one records
+array the tile kernels walk. Per-tile fragment sets and their depth order
+are those of one band.
+
+Not ported in this module yet: the bf16 payload and the `fwd_records` /
+`bwd_unsort` variants.
 """
 
 from __future__ import annotations
@@ -250,18 +257,20 @@ def ellipse_row_spans(mean2d, conic, t_cut, xmin, ymin, xmax, ymax,
 
 
 # --------------------------------------------------------------------------
-# build_binning (bands = 1)
+# build_binning
 # --------------------------------------------------------------------------
 
 
 class CompactBinning(NamedTuple):
-    """Index structure for one render (all non-differentiable)."""
+    """Index structure for one render (all non-differentiable). With sort
+    bands, aux_rows, bases and f_kept gain a leading band dimension B and
+    bases cover cap_band = C/B (rounded up to FCHUNK) slots each."""
 
-    aux_rows: torch.Tensor     # [4 (or 21, rows mode), Nw] f32
-    bases: torch.Tensor        # [C/FCHUNK] i32 128-aligned window starts
-    tile_starts: torch.Tensor  # [T] i32
+    aux_rows: torch.Tensor     # [(B,) 4 (or 21, rows mode), Nw] f32
+    bases: torch.Tensor        # [(B,) Cb/FCHUNK] i32 128-aligned window starts
+    tile_starts: torch.Tensor  # [T] i32 (band b's offset by b * cap_band)
     tile_counts: torch.Tensor  # [T] i32
-    f_kept: torch.Tensor       # [] i32 fragments actually emitted
+    f_kept: torch.Tensor       # [(B,)] i32 fragments actually emitted
     num_fragments: torch.Tensor  # [] i32 true demand (may exceed capacity)
     dropped: torch.Tensor      # [] i32 fragments dropped by the clamp
     overflow: torch.Tensor     # [] bool
@@ -287,6 +296,12 @@ def _rect_corners(sel, y0, y1, x0, x1, ys, xs):
     return a.T @ b
 
 
+def band_cap(capacity: int, bands: int) -> int:
+    """Slots per band: capacity / bands, rounded up twice (to a slot, then
+    to FCHUNK), as the JAX package rounds it."""
+    return -(-(-(-capacity // bands)) // FCHUNK) * FCHUNK
+
+
 @torch.no_grad()
 def build_binning(
     splats: Splats2D,
@@ -302,11 +317,13 @@ def build_binning(
     tight="rows" also enumerates exact per-tile-row spans for gaussians at
     most ROW_SPAN_MAX rows tall. Per-tile counts are exact integers from a
     signed rect-corner product and a 2-D prefix sum, as in the JAX package.
+
+    bands > 1 splits the structure into `bands` contiguous tile-row ranges
+    whose boundaries balance the real fragment counts of an exact per-row
+    histogram; band b enumerates its own fragments gaussian-major over
+    `band_cap(capacity, bands)` slots from column b * cap_band. Returns
+    aux_rows [B, A, Nw], bases [B, Cb/FCHUNK] and f_kept [B].
     """
-    if bands > 1:
-        raise NotImplementedError(
-            "sort bands (bands > 1) are not ported yet; ROADMAP queue 1 "
-            "item 12")
     rows_mode = tight == "rows"
     mean2d = splats.mean2d.detach()
     depth = splats.depth.detach()
@@ -341,75 +358,141 @@ def build_binning(
         rmode = torch.zeros((n,), dtype=torch.bool, device=dev)
         rect_enum = vis
 
+    bands = max(1, min(int(bands), tiles_y))
+    cap_band = band_cap(capacity, bands)
     ys = torch.arange(tiles_y + 1, dtype=torch.int32, device=dev)
     xs = torch.arange(tiles_x + 1, dtype=torch.int32, device=dev)
     dbits = torch.where(vis, quantize_depth_bits(depth, db), 0).to(torch.float32)
-
     zero = torch.zeros_like(span_w)
-    if rows_mode:
-        cnt_true = torch.where(rmode, row_span.sum(dim=0, dtype=torch.int32),
-                               torch.where(rect_enum, span_w * span_h, zero))
-    else:
-        cnt_true = torch.where(rect_enum, span_w * span_h, zero)
-    cnt = torch.clamp(cnt_true, min=1).to(torch.int64)
-    off_next = torch.cumsum(cnt, dim=0)
-    off = off_next - cnt
-    f_all = off_next[-1]
 
-    kept = off_next <= capacity
-    f_kept = torch.sum(torch.where(kept, cnt, 0)).to(torch.int32)
-    dropped = torch.sum(torch.where(kept, 0, cnt_true.to(torch.int64)))
-    overflow = f_all > capacity
-    f_real = torch.sum(cnt_true.to(torch.int64))
+    def band(lo, hi, start_col: int, cap_b: int):
+        """Tile rows [lo, hi) enumerated over cap_b slots whose records
+        start at column start_col; bands = 1 is the band (0, tiles_y)."""
+        bymin = torch.clamp(ymin, lo, hi)
+        bymax = torch.clamp(ymax, lo, hi)
+        bspan_h = bymax - bymin
+        if rows_mode:
+            # absolute row ymin + j lies in the band, or its span counts 0
+            row_span_b = torch.stack([
+                torch.where((ymin + j >= lo) & (ymin + j < hi), row_span[j],
+                            0) for j in range(ROW_SPAN_MAX)])
+            cnt_true = torch.where(
+                rmode, row_span_b.sum(dim=0, dtype=torch.int32),
+                torch.where(rect_enum, span_w * bspan_h, zero))
+        else:
+            cnt_true = torch.where(rect_enum, span_w * bspan_h, zero)
+        cnt = torch.clamp(cnt_true, min=1).to(torch.int64)
+        off_next = torch.cumsum(cnt, dim=0)
+        off = off_next - cnt
+        f_all = off_next[-1]
 
-    counted = rect_enum & kept
-    corners = _rect_corners(counted, ymin, ymax, xmin, xmax, ys, xs)
+        kept = off_next <= cap_b
+        f_kept = torch.sum(torch.where(kept, cnt, 0)).to(torch.int32)
+        dropped = torch.sum(torch.where(kept, 0, cnt_true.to(torch.int64)))
+        overflow = f_all > cap_b
+        f_real = torch.sum(cnt_true.to(torch.int64))
+
+        counted = rect_enum & kept
+        corners = _rect_corners(counted, bymin, bymax, xmin, xmax, ys, xs)
+        if rows_mode:
+            row_kept = rmode & kept
+            for j in range(ROW_SPAN_MAX):
+                sel = row_kept & (row_span_b[j] > 0)
+                corners = corners + _rect_corners(
+                    sel, ymin + j, ymin + j + 1, row_txlo[j],
+                    row_txlo[j] + row_span_b[j], ys, xs)
+        counts2d = torch.cumsum(torch.cumsum(corners, dim=0), dim=1)
+        tile_counts = torch.round(
+            counts2d[:tiles_y, :tiles_x].reshape(-1)).to(torch.int32)
+        tile_starts = (torch.cumsum(tile_counts, dim=0, dtype=torch.int32)
+                       - tile_counts + start_col)
+
+        chunk_q = torch.arange(cap_b // FCHUNK, dtype=torch.int64,
+                               device=dev) * FCHUNK
+        first_g = torch.searchsorted(off_next, chunk_q, right=True)
+        bases = torch.clamp((first_g // 128) * 128, 0, nw - WIN).to(torch.int32)
+
+        rvalid = rmode & (cnt_true > 0)
+        base_tile = torch.where(
+            rvalid, (ymin * tiles_x).to(torch.float32),
+            torch.where(vis & (bspan_h > 0),
+                        (bymin * tiles_x + xmin).to(torch.float32),
+                        float(num_tiles)))
+        parts = [
+            base_tile[None],
+            dbits[None],
+            off.to(torch.float32)[None],
+            torch.where(counted & (bspan_h > 0), span_w, 0).to(torch.float32)[None],
+        ]
+        if rows_mode:
+            parts.append(rvalid.to(torch.float32)[None])
+            row_prefix = torch.cumsum(row_span_b, dim=0) - row_span_b
+            parts.append(row_prefix.to(torch.float32))
+            parts.append(row_txlo.to(torch.float32))
+        aux = torch.cat(parts, dim=0)
+        aux_rows = torch.zeros((aux.shape[0], nw), dtype=torch.float32,
+                               device=dev)
+        aux_rows[:, :n] = aux
+        # pad columns: off stays monotone and huge so no window search
+        # finds them
+        aux_rows[2, n:] = torch.arange(nw - n, dtype=torch.float32,
+                                       device=dev) + _OFF_PAD
+        return (aux_rows, bases, tile_starts, tile_counts, f_kept, f_real,
+                dropped, overflow)
+
+    if bands == 1:
+        (aux_rows, bases, tile_starts, tile_counts, f_kept, f_real, dropped,
+         overflow) = band(0, tiles_y, 0, capacity)
+        return CompactBinning(
+            aux_rows=aux_rows, bases=bases, tile_starts=tile_starts,
+            tile_counts=tile_counts, f_kept=f_kept,
+            num_fragments=f_real.to(torch.int32),
+            dropped=dropped.to(torch.int32), overflow=overflow)
+
+    # band boundaries from the per-tile-row histogram of real fragments:
+    # rect gaussians add span_w to rows [ymin, ymax), rows-mode gaussians
+    # row_span[j] to row ymin + j (before the clamp; balance is a heuristic).
+    # Integer sums, below 2^24, so equal to the JAX package's f32 sums.
+    def wsum_at(w, idx):
+        out = torch.zeros((tiles_y + 1,), dtype=torch.int64, device=dev)
+        return out.index_add_(0, idx.to(torch.int64), w.to(torch.int64))
+
+    w_rect = torch.where(rect_enum, span_w, 0)
+    row_counts = torch.cumsum(wsum_at(w_rect, ymin) - wsum_at(w_rect, ymax),
+                              dim=0)[:tiles_y]
     if rows_mode:
-        row_kept = rmode & kept
         for j in range(ROW_SPAN_MAX):
-            sel = row_kept & (row_span[j] > 0)
-            corners = corners + _rect_corners(
-                sel, ymin + j, ymin + j + 1, row_txlo[j],
-                row_txlo[j] + row_span[j], ys, xs)
-    counts2d = torch.cumsum(torch.cumsum(corners, dim=0), dim=1)
-    tile_counts = torch.round(
-        counts2d[:tiles_y, :tiles_x].reshape(-1)).to(torch.int32)
-    tile_starts = (torch.cumsum(tile_counts, dim=0, dtype=torch.int32)
-                   - tile_counts)
+            row_counts = row_counts + wsum_at(
+                torch.where(rmode, row_span[j], 0),
+                torch.clamp(ymin + j, max=tiles_y))[:tiles_y]
+    cum = torch.cumsum(row_counts, dim=0).to(torch.float32)        # [Ty]
+    targets = (torch.arange(1, bands, dtype=torch.float32, device=dev)
+               * cum[-1] / float(bands))                           # [B-1]
+    # boundary b = 1 + the last row whose cumulative count is below target
+    his_inner = torch.clamp(
+        (cum[None, :] < targets[:, None]).sum(dim=1) + 1, max=tiles_y)
+    los = torch.cat([his_inner.new_zeros(1), his_inner])
+    his = torch.cat([his_inner, his_inner.new_full((1,), tiles_y)])
 
-    chunk_q = torch.arange(capacity // FCHUNK, dtype=torch.int64,
-                           device=dev) * FCHUNK
-    first_g = torch.searchsorted(off_next, chunk_q, right=True)
-    bases = torch.clamp((first_g // 128) * 128, 0, nw - WIN).to(torch.int32)
-
-    rvalid = rmode & (cnt_true > 0)
-    base_tile = torch.where(
-        rvalid, (ymin * tiles_x).to(torch.float32),
-        torch.where(vis & (span_h > 0),
-                    (ymin * tiles_x + xmin).to(torch.float32),
-                    float(num_tiles)))
-    parts = [
-        base_tile[None],
-        dbits[None],
-        off.to(torch.float32)[None],
-        torch.where(counted & (span_h > 0), span_w, 0).to(torch.float32)[None],
-    ]
-    if rows_mode:
-        parts.append(rvalid.to(torch.float32)[None])
-        row_prefix = torch.cumsum(row_span, dim=0) - row_span
-        parts.append(row_prefix.to(torch.float32))
-        parts.append(row_txlo.to(torch.float32))
-    aux = torch.cat(parts, dim=0)
-    aux_rows = torch.zeros((aux.shape[0], nw), dtype=torch.float32, device=dev)
-    aux_rows[:, :n] = aux
-    # pad columns: off stays monotone and huge so no window search finds them
-    aux_rows[2, n:] = torch.arange(nw - n, dtype=torch.float32,
-                                   device=dev) + _OFF_PAD
+    outs = [band(los[b], his[b], b * cap_band, cap_band) for b in range(bands)]
+    # per-band counts are 0 outside the band's rows: the global counts are
+    # their sum, the starts the owning band's (already column-offset)
+    tile_row = torch.arange(num_tiles, dtype=torch.int32, device=dev) // tiles_x
+    tile_counts = outs[0][3]
+    tile_starts = outs[0][2]
+    for b in range(1, bands):
+        tile_counts = tile_counts + outs[b][3]
+        in_band = (tile_row >= los[b]) & (tile_row < his[b])
+        tile_starts = torch.where(in_band, outs[b][2], tile_starts)
     return CompactBinning(
-        aux_rows=aux_rows, bases=bases, tile_starts=tile_starts,
-        tile_counts=tile_counts, f_kept=f_kept,
-        num_fragments=f_real.to(torch.int32),
-        dropped=dropped.to(torch.int32), overflow=overflow)
+        aux_rows=torch.stack([o[0] for o in outs]),
+        bases=torch.stack([o[1] for o in outs]),
+        tile_starts=tile_starts.to(torch.int32),
+        tile_counts=tile_counts.to(torch.int32),
+        f_kept=torch.stack([o[4] for o in outs]),
+        num_fragments=sum(o[5] for o in outs).to(torch.int32),
+        dropped=sum(o[6] for o in outs).to(torch.int32),
+        overflow=torch.stack([o[7] for o in outs]).any())
 
 
 # --------------------------------------------------------------------------
@@ -597,14 +680,24 @@ class _CompositeCompact(torch.autograd.Function):
 
         db = depth_key_bits(tiles_x, tiles_y)
         n_rows = NUM_REC_ROWS if include_normal else N_CORE_ROWS
-        key, rec = expand_fragments(table, bases, f_kept, tiles_x, db, n_rows)
-        perm, rows = sort_fragments(key, rec)
-        records = stack_records(rows)
+        banded = table.dim() == 3
+        tables = list(table) if banded else [table]
+        bases_b = list(bases) if banded else [bases]
+        f_kept_b = list(f_kept) if banded else [f_kept]
+        rows_parts, perms = [], []
+        for tab, bs, fk in zip(tables, bases_b, f_kept_b):
+            key, rec = expand_fragments(tab, bs, fk, tiles_x, db, n_rows)
+            perm, rows = sort_fragments(key, rec)
+            rows_parts.append(rows)
+            perms.append(perm)
+        # band tile ids ascend with b: the concatenation is the sorted order
+        records = stack_records(torch.cat(rows_parts, dim=1) if banded
+                                else rows_parts[0])
         out = rasterize_fwd_impl(records, tile_starts, tile_counts,
                                  tile_id_offset, tiles_x, include_normal)
-        ctx.save_for_backward(records, perm, tile_starts, tile_counts,
+        ctx.save_for_backward(records, tile_starts, tile_counts,
                               tile_id_offset, table.detach(), bases, f_kept,
-                              out)
+                              out, *perms)
         ctx.tiles_x = tiles_x
         ctx.n_rows = n_rows
         return out
@@ -613,21 +706,31 @@ class _CompositeCompact(torch.autograd.Function):
     def backward(ctx, gout):
         from .tile_kernel import rasterize_bwd_impl
 
-        (records, perm, tile_starts, tile_counts, tile_id_offset, table,
-         bases, f_kept, out) = ctx.saved_tensors
+        (records, tile_starts, tile_counts, tile_id_offset, table, bases,
+         f_kept, out, *perms) = ctx.saved_tensors
         d_records = rasterize_bwd_impl(records, tile_starts, tile_counts,
                                        tile_id_offset, out,
                                        gout.contiguous(), ctx.tiles_x,
                                        ctx.n_rows == NUM_REC_ROWS)
         n_rows = ctx.n_rows
-        # exact inverse-permutation scatter back to presort order
-        d_presort = torch.empty((n_rows, perm.shape[0]), dtype=torch.float32,
-                                device=records.device)
-        d_presort[:, perm] = d_records[:n_rows]
-        d_rows = segment_sum_rows(d_presort, table, bases, f_kept)
-        d_table = torch.cat(
-            [d_rows, d_rows.new_zeros((table.shape[0] - n_rows,
-                                       d_rows.shape[1]))], dim=0)
+        banded = table.dim() == 3
+        tables = list(table) if banded else [table]
+        bases_b = list(bases) if banded else [bases]
+        f_kept_b = list(f_kept) if banded else [f_kept]
+        cap_b = perms[0].shape[0]
+        d_tables = []
+        for b, (tab, bs, fk) in enumerate(zip(tables, bases_b, f_kept_b)):
+            # exact inverse-permutation scatter back to the band's presort
+            # order
+            d_presort = torch.empty((n_rows, cap_b), dtype=torch.float32,
+                                    device=records.device)
+            d_presort[:, perms[b]] = d_records[:n_rows,
+                                               b * cap_b:(b + 1) * cap_b]
+            d_rows = segment_sum_rows(d_presort, tab, bs, fk)
+            d_tables.append(torch.cat(
+                [d_rows, d_rows.new_zeros((tab.shape[0] - n_rows,
+                                           d_rows.shape[1]))], dim=0))
+        d_table = torch.stack(d_tables) if banded else d_tables[0]
         return d_table, None, None, None, None, None, None, None, None
 
 
@@ -640,6 +743,11 @@ def composite_compact(table, bases, f_kept, tile_starts, tile_counts,
     rest detached aux rows (build_table). Returns [T, 8, 256] tile planes.
     include_normal=False keeps the 3 normal rows out of the sort and the
     unsort (composited normal planes are 0, their table gradient rows 0).
+
+    The banded structure of `build_binning(bands=B)` comes as table
+    [B, R, Nw], bases [B, Cb/FCHUNK], f_kept [B]: each band expands, sorts,
+    unsorts and segment-sums on its own; the table's cotangent is
+    [B, R, Nw], which the caller's stack of per-band tables sums.
     """
     return _CompositeCompact.apply(table, bases, f_kept, tile_starts,
                                    tile_counts, tile_id_offset, tiles_x,

@@ -17,8 +17,11 @@ the units its 2e-4 densification threshold is set in. The JAX package adds
 the offset divided by 0.5*[W, H] where this multiplies, so its statistic is
 (0.5*[W, H])^2 smaller (ROADMAP, faults found in the reference).
 
-Not ported yet (ROADMAP queue 1 item 12): the legacy `binning_mode`,
-tile / gauss sharding axes, sort bands, the bf16 payload, the
+Sort bands come from a `(profile, bands)` fragment profile (the trainers'
+pollers and the evaluator choose them) or from `sort_bands`, which wins.
+
+Not ported yet (ROADMAP queue 1 items 11 and 12): the legacy
+`binning_mode`, tile / gauss sharding axes, the bf16 payload, the
 `fwd_records` / `bwd_unsort` variants and the `RODYGS_*` environment knobs.
 """
 
@@ -62,13 +65,15 @@ def render(
     include_normal: bool = True,
     tight_rect: bool | str | None = None,
     pose_grad_only: bool = False,
+    sort_bands: int | None = None,
 ) -> dict:
     """Differentiable tile rasterization of N Gaussians.
 
     means3d [N,3], shs [N,K,3], activated opacity [N] / scaling [N,3], raw
     quaternion rotation [N,4]. `fragment_profile` sets the fragment
-    capacity (compact.fragment_capacity); `tight_rect` overrides the
-    adaptive binning default.
+    capacity (compact.fragment_capacity) and, as a (profile, bands) tuple,
+    the sort bands; `sort_bands` overrides the profile's band count;
+    `tight_rect` overrides the adaptive binning default.
     """
     if means3d.is_cuda:
         strict_fp32()
@@ -87,8 +92,11 @@ def render(
     capacity = fragment_capacity(n, fragment_profile)
     tight = _default_tight(num_tiles) if tight_rect is None else tight_rect
     _, bands = split_profile(fragment_profile)
+    if sort_bands is not None:
+        bands = sort_bands
+    bands = max(1, min(bands, tiles_y))
     cb = build_binning(splats, tiles_x, tiles_y, capacity, tight=tight,
-                       bands=min(bands, tiles_y))
+                       bands=bands)
     nw = padded_width(n)
     rec13 = torch.cat([
         splats.mean2d,                 # rows 0:2
@@ -99,7 +107,13 @@ def render(
         splats.normal,                 # rows 10:13
     ], dim=0)
     rec13 = torch.nn.functional.pad(rec13, (0, nw - n))
-    table = build_table(rec13, cb.aux_rows)
+    if bands > 1:
+        # the bands share the record rows: autograd of the stack sums the
+        # bands' [B, R, Nw] table cotangent into them
+        table = torch.stack([build_table(rec13, cb.aux_rows[b])
+                             for b in range(bands)])
+    else:
+        table = build_table(rec13, cb.aux_rows)
     tile_out = composite_compact(
         table, cb.bases, cb.f_kept, cb.tile_starts, cb.tile_counts,
         torch.zeros((1,), dtype=torch.int32, device=means3d.device),

@@ -1,6 +1,6 @@
 """Joint static + dynamic trainer, the top of the training stack. Port of
 `rodygs_tpu/train/trainer_joint.py` (`RoDyGSTrainer.__init__`, the dynamic
-step and `train_iteration`; checkpoint writing and resume wait for the host
+step, `train_iteration` and `save_checkpoints`; resume waits for the host
 layer).
 
 Per iteration: (1) the static step, which renders the static set alone and
@@ -17,12 +17,14 @@ opacity. One pose array, owned by the static trainer, serves both steps
 
 from __future__ import annotations
 
+from pathlib import Path
 from typing import Any
 
 import torch
 
 from ..models import gaussians as G
 from ..render.rasterize import render
+from ..utils.checkpoint import save_checkpoint
 from .densify import accumulate_stats
 from .optim import CameraPoses, adam_update, tree_leaves, tree_map
 from .trainer_dynamic import DynParams, DynTrainer, DynTrainState
@@ -35,12 +37,14 @@ class RoDyGSTrainer:
     def __init__(self, static_trainer: ThreeDGSTrainer,
                  dynamic_trainer: DynTrainer | None,
                  sh_up_start_iteration: int = 0,
-                 sh_up_period: int = 1000):
+                 sh_up_period: int = 1000,
+                 logdir: str | Path | None = None):
         self.static = static_trainer
         self.dynamic = dynamic_trainer
         self.skip_dynamic = dynamic_trainer is None
         self.sh_up_start_iteration = sh_up_start_iteration
         self.sh_up_period = sh_up_period
+        self.logdir = Path(logdir) if logdir is not None else None
         if not self.skip_dynamic:
             self.dyn_fragment_profile: str | int = "lean"
             self._dyn_escalation = EscalationPoller()
@@ -171,3 +175,16 @@ class RoDyGSTrainer:
             if info is not None:
                 metrics["dynamic_densify"] = info
         return metrics
+
+    def save_checkpoints(self, iteration: int) -> None:
+        """Write `static_last.ckpt` and (with a dynamic model)
+        `dynamic_last.ckpt` under `logdir`, in the JAX package's checkpoint
+        format (utils/checkpoint.py): either package's evaluator reads
+        them. One process writes; there is no barrier."""
+        if self.logdir is None:
+            raise ValueError("save_checkpoints needs the trainer's logdir")
+        save_checkpoint(self.logdir / "static_last.ckpt",
+                        self.static.state_dict(iteration), iteration)
+        if not self.skip_dynamic:
+            save_checkpoint(self.logdir / "dynamic_last.ckpt",
+                            self.dynamic.state_dict(iteration), iteration)

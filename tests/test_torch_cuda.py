@@ -19,6 +19,7 @@ from hypothesis import strategies as st
 
 from rodygs_tpu_torch import kernel_check as KC
 from rodygs_tpu_torch import kernels
+from rodygs_tpu_torch.evalsuite import lpips as L
 from rodygs_tpu_torch.models import gaussians as G
 from rodygs_tpu_torch.render import compact as C
 from rodygs_tpu_torch.render import tile_kernel as TK
@@ -374,6 +375,57 @@ def test_expand_takes_only_the_two_row_counts(n_rows):
         C.expand_fragments(table, bases, fk, 8, db, n_rows)
 
 
+@pytest.mark.parametrize("bands,tight", [(2, True), (3, "rows")])
+def test_check_bands_runs_on_plain_versions(bands, tight):
+    params, cam = scene()
+    errs, cb = KC.check_bands(params, None, cam, 3, SIZE, SIZE, "wide", tight,
+                              bands)
+    assert errs == dict.fromkeys(("expand", "segsum", "tile_fwd", "tile_bwd"),
+                                 0.0)
+    assert cb.f_kept.shape == (bands,) and (cb.f_kept > 0).all()
+
+
+def _banded_renders(device, bands_list, size=SIZE, n=1500):
+    """Image and gradients (means3d, opacity, q) of one seeded view at each
+    band count."""
+    params, cam = scene(n=n, device=device)
+    out = {}
+    for bands in bands_list:
+        xyz = params.xyz.clone().requires_grad_(True)
+        op = params.opacity.clone().requires_grad_(True)
+        q = cam.q_c2w.clone().requires_grad_(True)
+        p = params._replace(xyz=xyz, opacity=op)
+        o = render(p.xyz, G.get_features(p), G.get_opacity(p),
+                   G.get_scaling(p), p.rotation, cam._replace(q_c2w=q), 3,
+                   size, size, fragment_profile="wide", sort_bands=bands)
+        (o["rendered_image"].square().mean()
+         + o["rendered_depth"].mean()).backward()
+        out[bands] = (o["rendered_image"].detach(), [xyz.grad, op.grad, q.grad])
+    return out
+
+
+def _assert_bands_agree(out):
+    img1, g1 = out[1]
+    for bands, (img, g) in out.items():
+        assert torch.equal(img, img1), bands
+        for a, b in zip(g1, g):
+            torch.testing.assert_close(b / a.abs().max(), a / a.abs().max(),
+                                       atol=KC.TOL_BWD_SCALED, rtol=0)
+
+
+def test_banded_render_keeps_image_bits():
+    _assert_bands_agree(_banded_renders("cpu", (1, 2, 4)))
+
+
+def test_random_lpips_weights_load(tmp_path):
+    L.write_random_weights(tmp_path / "w.npz")
+    for net, n_convs in (("alex", 5), ("vgg", 13)):
+        params = L.load_params(net, str(tmp_path / "w.npz"), "cpu")
+        assert sum(k.startswith("conv") for k in params) == 2 * n_convs
+        img = torch.rand((32, 32, 3))
+        assert float(L.lpips_forward(net, params, img, img)) == 0.0
+
+
 # --------------------------------------------------------------------------
 # on the card
 # --------------------------------------------------------------------------
@@ -511,3 +563,38 @@ def test_cuda_render_matches_cpu(cuda_device):
     torch.testing.assert_close(img_g, img_c, atol=1e-4, rtol=0)
     torch.testing.assert_close(g_g / g_c.abs().max(), g_c / g_c.abs().max(),
                                atol=KC.TOL_BWD_SCALED, rtol=0)
+
+
+@pytest.mark.parametrize("bands,tight", [(2, True), (4, "rows")])
+def test_cuda_banded_fragment_kernels_match_plain(cuda_device, bands, tight):
+    """expand and segsum on every band: keys equal in every slot, segsum
+    within its bar and the same bits twice; the tile kernels on the bands'
+    concatenated records (inside check_bands)."""
+    params, cam = KC.random_scene(20000, 4, cuda_device)
+    kernels.reset_launches()
+    errs, cb = KC.check_bands(params, None, cam, 3, 256, 256, "huge", tight,
+                              bands)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["expand"] >= bands
+    assert kernels.LAUNCHES["segsum"] >= 2 * bands
+    assert (cb.f_kept > 0).all()
+
+
+def test_cuda_banded_render_keeps_image_bits(cuda_device):
+    kernels.reset_launches()
+    _assert_bands_agree(_banded_renders(cuda_device, (1, 2, 4), size=256,
+                                        n=20000))
+    assert kernels.LAUNCHES["expand"] == 1 + 2 + 4
+    assert kernels.LAUNCHES["segsum"] == 1 + 2 + 4
+
+
+@pytest.mark.parametrize("net", ["alex", "vgg"])
+def test_cuda_lpips_matches_cpu(cuda_device, net, tmp_path):
+    """cuDNN in full fp32 (no TF32) against the CPU's convolutions."""
+    L.write_random_weights(tmp_path / "w.npz", seed=6)
+    rng = np.random.default_rng(6)
+    a = rng.uniform(size=(96, 128, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    card = float(L.lpips_fn(net, str(tmp_path / "w.npz"), cuda_device)(a, b))
+    cpu = float(L.lpips_fn(net, str(tmp_path / "w.npz"), "cpu")(a, b))
+    assert abs(card - cpu) <= 1e-4 * abs(cpu), (card, cpu)

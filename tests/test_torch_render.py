@@ -114,11 +114,6 @@ def test_build_binning_overflow_drops_whole_gaussians(scene_splats):
                                       err_msg=name)
 
 
-def test_bands_raise_not_implemented(scene_splats):
-    with pytest.raises(NotImplementedError, match="queue 1 item 12"):
-        tc.build_binning(splats_to_torch(scene_splats), 4, 3, 4096, bands=2)
-
-
 # --------------------------------------------------------------------------
 # each kernel's plain version against its Pallas twin
 # --------------------------------------------------------------------------
