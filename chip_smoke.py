@@ -101,10 +101,35 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
                that decode to the images, the L2 falling on every aligned
                view, LPIPS within 1e-4 relative, banded images bit-identical
                to one band's and every kernel launched inside eval().
-  8. report  — the card's name and power limit (nvidia-smi), one JSON line
+  8. cli     — the port's entry points on a scene on disk. The host ops
+               must be native. The time embedding at the shipped 26
+               frequencies for the 24 frame times, on the card and the
+               CPU, against float64 (columns past 1e-6). data/synthetic.py
+               writes a kubric-shaped scene (512x512, 24 train frames at
+               times i/23, 4 test views halfway after train frames 2, 8,
+               14, 20, plys of 5,000 static and 1,000 dynamic points a
+               frame, MASt3R poses perturbed by 0.3 deg / 0.01) under
+               mast3r_opt/exp0 and swin_noloop_000. Then, each a
+               subprocess: `python -m rodygs_tpu_torch.pipelines.train -b
+               configs/train/train_kubric_mrig.yaml --num_iterations 700
+               --checkpoint_every 350` at the config's widths (both models
+               densify at 600), and `...pipelines.eval` with
+               eval_wo_align.yaml and with eval_w_align.yaml cut to 100
+               pose steps by a dotlist override. Requires exit code 0, a
+               falling static loss, both *_last.ckpt files, resume.ckpt
+               read back by the port's load_resume as iteration 701 with
+               the end state, finite PSNR / SSIM / MS-SSIM / ATE / RPE, a
+               video.mp4 and the PNGs, no pose step that dropped fragments
+               and every kernel launched (the CLIs log their launch
+               counts). The four kernels against their plain versions on
+               the concatenated render of frame 0 of the restored end
+               state. Prints the data-load seconds, the StepTimer's p50,
+               each CLI's wall seconds and launches.
+  9. report  — the card's name and power limit (nvidia-smi), one JSON line
                of per-kernel numbers (`launches_joint`: launches in phase 6;
                `launches_eval`: inside the two eval() calls of phase 7;
-               `launches_bands`: in its three banded renders), and last
+               `launches_bands`: in its three banded renders;
+               `launches_cli`: in each CLI of phase 8), and last
                {"ok": true, "device": ...}.
 
 Without CUDA, or run from a directory without the package, it exits with
@@ -1000,6 +1025,61 @@ def _alive(trainer):
     return int(G.num_alive(trainer.state.store))
 
 
+def check_concatenated(joint, batch, width, height, tag, seed):
+    """The four kernels against their plain versions on the render the
+    joint trainer's dynamic step makes of `batch`: the static set and the
+    deformed dynamic set, concatenated, at the dynamic fragment profile.
+    Returns {kernel: max_abs_err}."""
+    import torch
+    from rodygs_tpu_torch import kernel_check as KC
+    from rodygs_tpu_torch.models import gaussians as G
+    from rodygs_tpu_torch.render import compact as C
+    from rodygs_tpu_torch.render import tile_kernel as TK
+    from rodygs_tpu_torch.render.binning import tile_grid
+    from rodygs_tpu_torch.render.rasterize import _default_tight
+    from rodygs_tpu_torch.train.trainer_static import make_camera_from_poses
+
+    st, dyn = joint.static, joint.dynamic
+    with torch.no_grad():
+        p = dyn.params()
+        transl, rot_delta = dyn.deformation(p, batch.time,
+                                            dyn.state.store.time_ind)
+        sp, gp = st.state.store.params, p.gauss
+        cat = G.GaussianParams(
+            xyz=torch.cat([sp.xyz, gp.xyz + transl]),
+            features_dc=torch.cat([sp.features_dc, gp.features_dc]),
+            features_rest=torch.cat([sp.features_rest, gp.features_rest]),
+            scaling=torch.cat([sp.scaling, gp.scaling]),
+            rotation=torch.cat([G.get_rotation(sp),
+                                G.get_rotation(gp) + rot_delta]),
+            opacity=torch.cat([sp.opacity, gp.opacity]))
+    alive = torch.cat([st.state.store.alive, dyn.state.store.alive])
+    tx, ty = tile_grid(width, height)
+    s = KC.capture_stages(cat, alive, make_camera_from_poses(st.state.poses,
+                                                             batch),
+                          dyn.active_sh_degree, width, height,
+                          joint.dyn_fragment_profile,
+                          _default_tight(tx * ty), seed)
+    errs = KC.check_stages(s)
+    sl = KC.slot_stats(s)
+    cb = s["cb"]
+    with torch.no_grad():   # the scales the two scaled bars divide by
+        d_rec = TK.rasterize_bwd_impl(s["records"], cb.tile_starts,
+                                      cb.tile_counts, s["off"], s["out"],
+                                      s["gout"], s["tx"], s["include_normal"])
+        seg = C.segment_sum_rows(s["d_presort"], s["table"], cb.bases,
+                                 cb.f_kept)
+    scale = {"tile_bwd": float(d_rec.abs().max()),
+             "segsum": float(seg.abs().max())}
+    log(f"[{tag}] check on frame {batch.frame_idx}'s concatenated render: "
+        f"{G.capacity_of(st.state.store)} + {G.capacity_of(dyn.state.store)} "
+        f"gaussians, C={sl['capacity']} f_kept={sl['f_kept']} "
+        f"fragments={int(cb.num_fragments)} max_abs_err={errs}; "
+        + ", ".join(f"{k} max |output| {v:.6g}, error / max "
+                    f"{errs[k] / v:.3g}" for k, v in scale.items()))
+    return errs
+
+
 def phase_joint(device, **scene):
     """Joint iterations 481-640 (static step, static densify, dynamic step,
     dynamic densify) on the joint scene; checks, then the kernels on the
@@ -1007,12 +1087,9 @@ def phase_joint(device, **scene):
     Returns ({kernel: launches}, {kernel: max_abs_err}, the end state:
     dict(joint, gt_render, gt_poses, size, iteration))."""
     import torch
-    from rodygs_tpu_torch import kernel_check as KC
     from rodygs_tpu_torch import kernels
     from rodygs_tpu_torch.models import gaussians as G
     from rodygs_tpu_torch.render import compact as C
-    from rodygs_tpu_torch.render.rasterize import _default_tight
-    from rodygs_tpu_torch.train.trainer_static import make_camera_from_poses
 
     t_phase = time.perf_counter()
     joint, batch_for, (W, H), (gt_render, gt_poses) = joint_trainer(
@@ -1128,30 +1205,7 @@ def phase_joint(device, **scene):
 
     # the four kernels against their plain versions on the concatenated
     # static + deformed dynamic set of frame 0 (the dynamic step's input)
-    b0 = batch_for(0)
-    with torch.no_grad():
-        p = dyn.params()
-        transl, rot_delta = dyn.deformation(p, b0.time, dyn.state.store.time_ind)
-        sp, gp = st.state.store.params, p.gauss
-        cat = G.GaussianParams(
-            xyz=torch.cat([sp.xyz, gp.xyz + transl]),
-            features_dc=torch.cat([sp.features_dc, gp.features_dc]),
-            features_rest=torch.cat([sp.features_rest, gp.features_rest]),
-            scaling=torch.cat([sp.scaling, gp.scaling]),
-            rotation=torch.cat([G.get_rotation(sp),
-                                G.get_rotation(gp) + rot_delta]),
-            opacity=torch.cat([sp.opacity, gp.opacity]))
-    alive = torch.cat([st.state.store.alive, dyn.state.store.alive])
-    s = KC.capture_stages(cat, alive, make_camera_from_poses(st.state.poses, b0),
-                          dyn.active_sh_degree, W, H, joint.dyn_fragment_profile,
-                          _default_tight(32 * 32), 4)
-    errs = KC.check_stages(s)
-    sl = KC.slot_stats(s)
-    log(f"[joint] check on frame 0's concatenated render: "
-        f"{G.capacity_of(st.state.store)} + {G.capacity_of(dyn.state.store)} "
-        f"gaussians, C={sl['capacity']} f_kept={sl['f_kept']} "
-        f"fragments={int(s['cb'].num_fragments)} max_abs_err={errs}")
-    del s
+    errs = check_concatenated(joint, batch_for(0), W, H, "joint", seed=4)
 
     # the profiler: 5 joint iterations, one with rigidity, then one
     # densification call of each model (its result discarded)
@@ -1596,6 +1650,227 @@ def phase_eval(device, state):
     return launches, launches_bands, errs
 
 
+# --------------------------------------------------------------------------
+# phase 8: the CLIs on a scene on disk
+# --------------------------------------------------------------------------
+
+CLI_TRAIN_YAML = "configs/train/train_kubric_mrig.yaml"
+CLI_EVAL_YAMLS = ("configs/eval/eval_wo_align.yaml",
+                  "configs/eval/eval_w_align.yaml")
+CLI_SIZE, CLI_FRAMES = 512, 24          # kubric frames: 24 at times i/23
+CLI_STATIC, CLI_DYNAMIC = 5_000, 1_000  # points per frame's ply
+CLI_TEST_AFTER = (2, 8, 14, 20)         # test view halfway after train i
+CLI_ITERATIONS, CLI_CHECKPOINT_EVERY = 700, 350
+CLI_ALIGN_STEPS = 100                   # eval_w_align's 1000, cut by dotlist
+CLI_MULTIRES = 26                       # the shipped time embedding
+
+
+def _cli(args, tag, timeout):
+    """Run `python -m <args>` from the repository root; returns (stdout,
+    wall seconds). Raises CheckFailed on a non-zero exit."""
+    cmd = [sys.executable, "-m", *map(str, args)]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
+                         capture_output=True, text=True, timeout=timeout)
+    secs = time.perf_counter() - t0
+    if res.returncode != 0:
+        log(res.stdout[-4000:] + res.stderr[-4000:])
+    require(res.returncode == 0, f"{tag}: exit code {res.returncode}")
+    return res.stdout, secs
+
+
+def _json_after(text, prefix):
+    lines = [ln for ln in text.splitlines() if prefix in ln]
+    require(bool(lines), f"no line with {prefix!r}")
+    return json.loads(lines[-1].split(prefix, 1)[1])
+
+
+def time_embedding_columns(device, frames=CLI_FRAMES, multires=CLI_MULTIRES):
+    """The port's time embedding at the shipped 26 linear frequencies for
+    the scene's frame times, on the card and on the CPU, against two
+    float64 embeddings: of the same float32 arguments t*f*pi (the
+    sin/cos implementation's error) and of the exact arguments (the
+    float32 rounding of t*f*pi as well). Returns {comparison: [(column,
+    max |difference|)]} for the columns past 1e-6."""
+    import torch
+    from rodygs_tpu_torch.models.motion import embed_time
+
+    t = torch.arange(frames, dtype=torch.float32) / (frames - 1)
+    names = ["t"] + [f"{fn}(f{k})" for k in range(multires)
+                     for fn in ("sin", "cos")]
+    freqs = torch.linspace(1.0, 2.0 ** (multires - 1), multires)
+    arg32 = (t[:, None] * (freqs * math.pi)).double()
+    arg64 = (t.double()[:, None] * torch.linspace(
+        1.0, 2.0 ** (multires - 1), multires, dtype=torch.float64) * math.pi)
+
+    def f64(arg):
+        sc = torch.stack([torch.sin(arg), torch.cos(arg)], -1).reshape(
+            frames, 2 * multires)
+        return torch.cat([t.double()[:, None], sc], 1)
+
+    out = {}
+    for where, emb in (("card", embed_time(t.to(device), multires, False)),
+                       ("cpu", embed_time(t, multires, False))):
+        emb = emb.double().cpu()
+        for ref_name, ref in (("float32 argument", f64(arg32)),
+                              ("exact argument", f64(arg64))):
+            diff = (emb - ref).abs().max(0).values
+            out[f"{where} vs float64 of the {ref_name}"] = [
+                (names[c], float(diff[c])) for c in range(diff.numel())
+                if diff[c] > 1e-6]
+    return out
+
+
+def phase_cli(device):
+    """The train CLI and both eval CLIs, as subprocesses, on a scene that
+    `data/synthetic.py` writes at the kubric shape (phase 8); the kernels
+    against their plain versions on the train run's end state. Returns
+    ({cli: {kernel: launches}}, {kernel: max_abs_err})."""
+    import shutil
+    import tempfile
+    import torch
+    import yaml
+    from rodygs_tpu_torch.data import synthetic
+    from rodygs_tpu_torch.models import gaussians as G
+    from rodygs_tpu_torch.pipelines.build import (build_training_run,
+                                                  make_frame_batch)
+    from rodygs_tpu_torch.utils import native
+    from rodygs_tpu_torch.utils.checkpoint import load_checkpoint
+    from rodygs_tpu_torch.utils.config import load_yaml
+
+    t_phase = time.perf_counter()
+    host_ops = native.backend()
+    log(f"[cli] host ops: {host_ops}")
+    require(host_ops == "native", "the native host-ops library did not build")
+    for col in time_embedding_columns(device).items():
+        log(f"[cli] time embedding at {CLI_MULTIRES} frequencies, "
+            f"{CLI_FRAMES} frame times, columns past 1e-6, {col[0]}: "
+            + (", ".join(f"{n} {d:.3g}" for n, d in col[1]) or "none"))
+
+    root = Path(tempfile.mkdtemp(prefix="rodygs_cli_"))
+    launches = {}
+    try:
+        t0 = time.perf_counter()
+        test_times = [(i + 0.5) / (CLI_FRAMES - 1) for i in CLI_TEST_AFTER]
+        scene = synthetic.make_scene_views(
+            CLI_STATIC, CLI_DYNAMIC, CLI_FRAMES, CLI_SIZE, CLI_SIZE,
+            test_times=test_times, device=device)
+        data = synthetic.write_scene(root / "scene", scene, CLI_SIZE,
+                                     CLI_SIZE, pose_noise_rot_deg=0.3,
+                                     pose_noise_trans=0.01)
+        del scene
+        # the train config's MASt3R experiment; the eval configs' test
+        # readers read exp0's global_params.pkl
+        shutil.copytree(data / "mast3r_opt" / "exp0",
+                        data / "mast3r_opt" / "swin_noloop_000")
+        log(f"[cli] scene written in {time.perf_counter() - t0:.2f} s: "
+            f"{CLI_SIZE}x{CLI_SIZE}, {CLI_FRAMES} train frames, test times "
+            f"{[round(x, 4) for x in test_times]}, plys of {CLI_STATIC} "
+            f"static and {CLI_DYNAMIC} dynamic points a frame")
+
+        out, secs = _cli(
+            ["rodygs_tpu_torch.pipelines.train", "-d", data, "-b",
+             CLI_TRAIN_YAML, "-g", "cli", "-n", "kubric", "-l", root / "logs",
+             "--num_iterations", CLI_ITERATIONS, "--checkpoint_every",
+             CLI_CHECKPOINT_EVERY], "train CLI", timeout=400)
+        run = root / "logs" / "cli" / "kubric_777"
+        train_log = (run / "train" / "train.log").read_text()
+        load_s = float(train_log.split("data loaded in ")[1].split()[0])
+        losses = [(int(ln.split("[")[1].split("/")[0]),
+                   float(ln.split(" static ")[1].split()[0]))
+                  for ln in train_log.splitlines() if " static " in ln]
+        steps = _json_after(train_log, "step times ")
+        launches["train"] = _json_after(train_log, "kernel launches ")
+        log(f"[cli] train CLI {secs:.2f} s wall; data load {load_s:.3f} s "
+            f"(train.log); StepTimer over {steps['steps']} iterations: p50 "
+            f"{steps['p50_ms']:.3f} ms, p90 {steps['p90_ms']:.3f}, mean "
+            f"{steps['mean_ms']:.3f}; static loss "
+            + ", ".join(f"{i}: {v:.4f}" for i, v in losses[::2])
+            + f"; launches {launches['train']}")
+        require(all(math.isfinite(v) for _, v in losses)
+                and losses[-1][0] == CLI_ITERATIONS
+                and np.mean([v for _, v in losses[-3:]]) < losses[0][1],
+                f"the static loss did not fall: {losses}")
+        require(all(launches["train"][k] >= 2 * CLI_ITERATIONS
+                    for k in launches["train"]),
+                f"a kernel launched less than twice an iteration: "
+                f"{launches['train']}")
+        for name in ("static_last.ckpt", "dynamic_last.ckpt", "resume.ckpt"):
+            require((run / "train" / name).exists(), f"no {name}")
+
+        # the snapshot reads back as the end state
+        config = load_yaml(str(run / "train" / "config.yaml"))
+        back = build_training_run(config, dirpath=str(data),
+                                  capacity_factor=4.0, device=device)
+        nxt = back.joint.load_resume(run / "train" / "resume.ckpt")
+        ends = [load_checkpoint(run / "train" / f"{s}_last.ckpt")[0]
+                for s in ("static", "dynamic")]
+        require(nxt == CLI_ITERATIONS + 1, f"resume at {nxt}")
+        same = []
+        for trainer, end in zip((back.joint.static, back.joint.dynamic), ends):
+            got = G.to_state_dict(trainer.state.store)
+            for k, v in got.items():
+                same.append(np.array_equal(v.cpu().numpy(), end["model"][k]))
+        dyn = back.joint.dynamic.state
+        same.append(np.array_equal(dyn.motion_coeff.cpu().numpy(),
+                                   ends[1]["model"]["_motion_coeff"]))
+        same.append(np.array_equal(back.joint.static.state.poses.q_c2w.cpu()
+                                   .numpy(), ends[0]["camera"]["q_c2w"]))
+        require(all(same), "resume.ckpt does not hold the end state")
+        alive = [int(G.num_alive(t.state.store))
+                 for t in (back.joint.static, back.joint.dynamic)]
+        log(f"[cli] resume.ckpt reads back as iteration {nxt} with the end "
+            f"state ({len(same)} arrays equal; alive static {alive[0]}, "
+            f"dynamic {alive[1]})")
+        frame = back.dynamic_dm.get_train_dset()[0]
+        errs = check_concatenated(
+            back.joint, make_frame_batch(frame, 0, device), CLI_SIZE,
+            CLI_SIZE, "cli", seed=6)
+        del back
+        torch.cuda.empty_cache()
+
+        for cfg in CLI_EVAL_YAMLS:
+            task = Path(cfg).stem
+            extra = ([f"eval.params.num_opts={CLI_ALIGN_STEPS}"]
+                     if "w_align" in task else [])
+            out, secs = _cli(
+                ["rodygs_tpu_torch.pipelines.eval", "-c", cfg, "-d", data,
+                 "-m", run, "-t", task, "--eval_batch_size", 2, *extra],
+                f"eval CLI {task}", timeout=300)
+            result = yaml.safe_load((run / task / "result.yaml").read_text())
+            launches[task] = _json_after(out, "kernel launches ")
+            fields = {**result["viz"], **result["pose"]}
+            log(f"[cli] eval CLI {task} {secs:.2f} s wall; result "
+                f"{json.dumps(fields)}; timing {json.dumps(result['timing'])}"
+                f"; launches inside eval() {launches[task]}")
+            for key in ("psnr", "ssim", "msssim", "ATE", "RPE_trans",
+                        "RPE_rot"):
+                require(key in fields and math.isfinite(fields[key]),
+                        f"{task}: {key} missing or not finite")
+            video = run / task / "video.mp4"
+            require(video.exists() and video.stat().st_size > 0,
+                    f"{task}: no video.mp4")
+            n_png = len(list((run / task / "pred" / "viz").glob("*.png")))
+            require(n_png == len(CLI_TEST_AFTER), f"{task}: {n_png} PNGs")
+            if extra:
+                pose = _json_after(out, "pose steps ")
+                log(f"[cli] {task} pose steps {pose}")
+                require(pose["steps"] == CLI_ALIGN_STEPS * len(CLI_TEST_AFTER)
+                        and pose["dropped"] == 0,
+                        f"a pose step dropped fragments: {pose}")
+                need = ("expand", "tile_fwd", "tile_bwd", "segsum")
+            else:
+                need = ("expand", "tile_fwd")
+            require(all(launches[task][k] > 0 for k in need),
+                    f"{task}: a kernel never launched {launches[task]}")
+            log(f"[cli] {task}: video.mp4 {video.stat().st_size} bytes, "
+                f"{n_png} PNGs")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[cli] phase {time.perf_counter() - t_phase:.2f} s")
+    return launches, errs
+
+
 def main() -> int:
     import torch
 
@@ -1643,6 +1918,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     launches_joint, e_joint, joint_end = phase_joint(device)
     launches_eval, launches_bands, e_eval = phase_eval(device, joint_end)
+    del joint_end
+    torch.cuda.empty_cache()
+    launches_cli, e_cli = phase_cli(device)
 
     rows = []
     for name in kernels.KERNELS:
@@ -1653,9 +1931,11 @@ def main() -> int:
                      "launches_joint": launches_joint[name],
                      "launches_eval": launches_eval[name],
                      "launches_bands": launches_bands[name],
+                     "launches_cli": {c: v[name]
+                                      for c, v in launches_cli.items()},
                      "max_abs_err": max(errs[name], e512[name],
                                         e1080.get(name, 0.0), e_joint[name],
-                                        e_eval[name]),
+                                        e_eval[name], e_cli[name]),
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
@@ -1670,7 +1950,8 @@ def main() -> int:
             f"{launches[name]}, in {JOINT_ITERATIONS[1] - JOINT_ITERATIONS[0] + 1} "
             f"joint iterations {launches_joint[name]}, inside eval() "
             f"{launches_eval[name]}, in the banded renders "
-            f"{launches_bands[name]}")
+            f"{launches_bands[name]}, in the CLIs "
+            f"{rows[-1]['launches_cli']}")
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

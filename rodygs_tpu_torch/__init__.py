@@ -5,10 +5,12 @@ Mirrors the JAX package's module layout (`rodygs_tpu/render/compact.py` <->
 rasterizer are hand-written CUDA C++ kernels for Hopper (`csrc/`), built
 from source at first use (`kernels.py`); every other op is plain PyTorch.
 
-The package imports torch, numpy, scipy (the pose metrics), PyYAML (the
-evaluator's result.yaml) and the standard library only — never `jax` and
-nothing of `rodygs_tpu`. Entry points run on `cuda` unless the
-caller passes `device="cpu"` (utils/platform.resolve_device).
+The package imports torch, numpy, scipy (the pose metrics), PyYAML
+(configs, result.yaml), Pillow (frames and masks), OpenCV (PNGs and the
+video) and the standard library only — never `jax` and nothing of
+`rodygs_tpu`. Entry points, the CLIs under `pipelines/` included, run on
+`cuda` unless the caller asks for the CPU (`device="cpu"`, `--device cpu`;
+utils/platform.resolve_device).
 """
 
 __version__ = "0.1.0"

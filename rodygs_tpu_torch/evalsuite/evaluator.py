@@ -1,13 +1,13 @@
 """End-to-end evaluator: checkpoint loading, per-view rendering and
-metrics, train-pose ATE/RPE, result.yaml and PNG export. Port of
-`rodygs_tpu/evalsuite/evaluator.py` (the video export waits for the host
-layer, ROADMAP queue 1 item 10).
+metrics, train-pose ATE/RPE, result.yaml, PNG and video export. Port of
+`rodygs_tpu/evalsuite/evaluator.py`.
 
 Loads `static_last.ckpt` / `dynamic_last.ckpt`, optionally runs test-time
 pose optimisation per test view, renders the concatenated static +
 deformed dynamic set, scores PSNR / SSIM / MS-SSIM / DSSIM / LPIPS, writes
-per-frame 16-bit PNGs and `result.yaml`, and scores the train poses
-against GT. The datamodules are duck-typed as in the JAX package:
+per-frame 16-bit PNGs, `result.yaml` and `video.mp4`, and scores the
+train poses against GT. The datamodules are `data/datamodule.GSDataModule`s
+or anything with the same surface:
 `get_test_dset()` (frames with image, image_name, time, fovx, fovy;
 `q_c2w` / `t_c2w` arrays; `image_width` / `image_height`),
 `get_test_sampler()`, `get_train_poses()`, `get_normalization()` and
@@ -18,11 +18,21 @@ chunk by repetition so it compiles once; here a chunk is a loop over its
 views and the padding is never rendered. The chunking and the `timing`
 keys stay.
 
-One departure: after a view drops fragments, a banded profile first falls
-back to fewer bands at the same capacity before it widens (the trainers'
-`EscalationPoller` policy). The JAX evaluator widens only, which finds
-nothing when one band overflows while the total fits, and then scores a
-clipped render (ROADMAP §3).
+Departures from the JAX evaluator, each a fault of its own:
+  * after a view drops fragments, a banded profile first falls back to
+    fewer bands at the same capacity before it widens (the trainers'
+    `EscalationPoller` policy). The JAX evaluator widens only, which finds
+    nothing when one band overflows while the total fits, and then scores
+    a clipped render;
+  * test-time pose optimisation renders the static set at a profile of its
+    own, fitted by a probe of each view before its steps, and a step whose
+    render drops fragments escalates (`escalated_profile`) and is taken
+    again; the JAX evaluator renders every step at "lean" and never looks
+    at the drops. `pose_render_stats` counts the steps, the retried ones
+    and those whose render still dropped;
+  * the pose optimisation's render passes the static model's isotropy to
+    `get_scaling` (an isotropic model's [C, 1] scales made the JAX one
+    fail in `preprocess`).
 """
 
 from __future__ import annotations
@@ -45,7 +55,7 @@ from ..render.compact import (bands_decision, bands_viable, fit_capacity,
 from ..render.rasterize import render
 from ..utils.checkpoint import load_checkpoint
 from ..utils.platform import resolve_device
-from ..utils.store import AssetStorer
+from ..utils.store import AssetStorer, write_video
 from .metrics import VizScoreEvaluator, ms_ssim_levels
 from .pose_metrics import PoseEvaluator
 from .pose_opt import PoseOptimizer
@@ -74,6 +84,25 @@ def escalated_profile(n: int, demand: int, current):
         if bands_viable(n, cap, demand, b):
             return join_profile(prof, b)
     return profile_for_demand(n, demand, prof)
+
+
+def fitted_profile(render_at, n: int, profile):
+    """The profile a probe fits: escalate until `render_at(profile)` drops
+    nothing (clipped fragments would bias every metric and every pose
+    gradient), then shrink to the demand-fitted size when the demand sits a
+    grid step below the capacity (eval_fit_profile). Eval renders a
+    converged scene, whose per-view demand varies far less than the
+    sizers' headroom. At the legal maximum the last profile stays and the
+    drops stay visible."""
+    while True:
+        out = render_at(profile)
+        demand = int(out["num_fragments"])
+        if not bool(out["overflow"]):
+            return eval_fit_profile(n, demand, profile)
+        wider = escalated_profile(n, demand, profile)
+        if wider is None:
+            return profile
+        profile = wider
 
 
 def chunk_padded(seq, size: int):
@@ -138,8 +167,12 @@ class RoDyGSEvaluator:
         self.image_width = self.test_dset.image_width
         self.image_height = self.test_dset.image_height
 
-        # fragment capacity: fitted by a probe render before the chunks
+        # fragment capacities: fitted by probe renders, the concatenated
+        # set's before the chunks, the static set's before each view's pose
+        # steps
         self.fragment_profile: str | int | tuple = "lean"
+        self.pose_fragment_profile: str | int | tuple = "lean"
+        self.pose_render_stats = {"steps": 0, "retried": 0, "dropped": 0}
 
         self.is_optimizable_cam = camera_lr != -1
         if self.is_optimizable_cam:
@@ -187,35 +220,40 @@ class RoDyGSEvaluator:
         ]
 
     @torch.no_grad()
-    def render_view(self, camera: Camera) -> dict:
-        """The concatenated set's render of one view at the current
-        fragment profile (the output dict of `render`)."""
+    def render_view(self, camera: Camera, profile=None) -> dict:
+        """The concatenated set's render of one view at `profile` (default:
+        the current fragment profile); the output dict of `render`."""
         xyz, shs, opacity, scaling, rotation, alive = self._concat_arrays(
             camera.time)
         return render(xyz, shs, opacity, scaling, rotation, camera,
                       self.active_sh_degree, self.image_width,
                       self.image_height, alive=alive,
-                      fragment_profile=self.fragment_profile,
+                      fragment_profile=(self.fragment_profile
+                                        if profile is None else profile),
                       include_normal=False)
 
+    def _render_static(self, camera: Camera, profile) -> dict:
+        """The static set's render, pose gradients only (the Gaussians are
+        frozen here, so the covariance and SH backward paths are gated
+        off): what the reference's PoseOptimizer renders."""
+        sp = self.static_store.params
+        return render(sp.xyz, G.get_features(sp), G.get_opacity(sp),
+                      G.get_scaling(sp, self.static_isotropic),
+                      G.get_rotation(sp), camera, self.active_sh_degree,
+                      self.image_width, self.image_height,
+                      alive=self.static_store.alive, fragment_profile=profile,
+                      include_normal=False, pose_grad_only=True)
+
     def _fit_fragment_profile(self, camera: Camera) -> None:
-        """Probe one view and fit the fragment capacity: escalate until the
-        render drops nothing (clipped fragments would bias every metric),
-        then shrink to the demand-fitted size when the demand sits a grid
-        step below the capacity. Eval renders a converged scene, whose
-        per-view demand varies far less than the sizers' headroom."""
-        while True:
-            out = self.render_view(camera)
-            demand = int(out["num_fragments"])
-            if not bool(out["overflow"]):
-                self.fragment_profile = eval_fit_profile(
-                    self._num_gaussians(), demand, self.fragment_profile)
-                return
-            wider = escalated_profile(self._num_gaussians(), demand,
-                                      self.fragment_profile)
-            if wider is None:
-                return  # at the legal maximum; the drops stay visible
-            self.fragment_profile = wider
+        self.fragment_profile = fitted_profile(
+            lambda p: self.render_view(camera, p), self._num_gaussians(),
+            self.fragment_profile)
+
+    @torch.no_grad()
+    def _fit_pose_profile(self, camera: Camera) -> None:
+        self.pose_fragment_profile = fitted_profile(
+            lambda p: self._render_static(camera, p),
+            G.capacity_of(self.static_store), self.pose_fragment_profile)
 
     def _render_chunk(self, cams: list) -> list:
         """Render a chunk's views; while any view drops fragments, escalate
@@ -234,15 +272,26 @@ class RoDyGSEvaluator:
             self.fragment_profile = wider
 
     def _render_rgb_for_poseopt(self, camera: Camera) -> torch.Tensor:
-        # static-only render, as the reference's PoseOptimizer uses the
-        # static model. pose_grad_only: the Gaussians are frozen here, so
-        # the covariance and SH backward paths are gated off
-        sp = self.static_store.params
-        out = render(sp.xyz, G.get_features(sp), G.get_opacity(sp),
-                     G.get_scaling(sp), G.get_rotation(sp), camera,
-                     self.active_sh_degree, self.image_width,
-                     self.image_height, alive=self.static_store.alive,
-                     include_normal=False, pose_grad_only=True)
+        """A pose step's render: at the fitted pose profile; a render that
+        drops fragments escalates the profile and is taken again, so the
+        step's loss never comes from a clipped render."""
+        stats = self.pose_render_stats
+        stats["steps"] += 1
+        retried = False
+        while True:
+            out = self._render_static(camera, self.pose_fragment_profile)
+            dropped = int(out["dropped"])
+            if dropped == 0:
+                break
+            wider = escalated_profile(G.capacity_of(self.static_store),
+                                      int(out["num_fragments"]),
+                                      self.pose_fragment_profile)
+            if wider is None:
+                stats["dropped"] += 1  # at the legal maximum
+                break
+            self.pose_fragment_profile = wider
+            retried = True
+        stats["retried"] += retried
         return out["rendered_image"]
 
     # --- main loop ---------------------------------------------------------
@@ -261,6 +310,7 @@ class RoDyGSEvaluator:
                 gt_c2w[:3, :3] = quat_to_matrix(
                     torch.as_tensor(np.asarray(q, np.float32))).numpy()
                 gt_c2w[:3, 3] = t
+                self._fit_pose_profile(camera)
                 camera = self.pose_optimizer(camera, gt_c2w, frame["image"])
             views.append((idx, frame, camera))
 
@@ -326,6 +376,8 @@ class RoDyGSEvaluator:
 
         with open(self.out_path / "result.yaml", "w") as f:
             yaml.safe_dump(result, f)
+        # the PNG writes are asynchronous: flush before the video reads them
         self.gt_storer.flush()
         self.pred_storer.flush()
+        write_video(self.out_path / "pred" / "viz", self.out_path / "video.mp4")
         return result

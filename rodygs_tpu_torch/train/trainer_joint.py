@@ -1,7 +1,6 @@
 """Joint static + dynamic trainer, the top of the training stack. Port of
-`rodygs_tpu/train/trainer_joint.py` (`RoDyGSTrainer.__init__`, the dynamic
-step, `train_iteration` and `save_checkpoints`; resume waits for the host
-layer).
+`rodygs_tpu/train/trainer_joint.py` (`RoDyGSTrainer`: the dynamic step,
+`train_iteration`, `save_checkpoints`, `save_resume` / `load_resume`).
 
 Per iteration: (1) the static step, which renders the static set alone and
 trains the static Gaussians and the camera poses; (2) the static model's
@@ -13,6 +12,13 @@ dynamic model's densification. The SH degree ramps on the joint schedule
 and is mirrored to the dynamic model. The joint trainer never resets
 opacity. One pose array, owned by the static trainer, serves both steps
 (the dynamic stage's camera learning rates are 0 in every shipped config).
+
+Resume files are checkpoints (utils/checkpoint.py) that both packages
+read: the two trainers' state trees share their field names with the JAX
+package's. The port stores its `torch.Generator` states under
+`torch_generators` and also writes the uint32 [2] `rng_key` the JAX loader
+wraps (the key data of `jax.random.key(seed)` of the static generator's
+seed). A resume across packages carries the state, not the random draws.
 """
 
 from __future__ import annotations
@@ -20,11 +26,12 @@ from __future__ import annotations
 from pathlib import Path
 from typing import Any
 
+import numpy as np
 import torch
 
 from ..models import gaussians as G
 from ..render.rasterize import render
-from ..utils.checkpoint import save_checkpoint
+from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from .densify import accumulate_stats
 from .optim import CameraPoses, adam_update, tree_leaves, tree_map
 from .trainer_dynamic import DynParams, DynTrainer, DynTrainState
@@ -38,12 +45,14 @@ class RoDyGSTrainer:
                  dynamic_trainer: DynTrainer | None,
                  sh_up_start_iteration: int = 0,
                  sh_up_period: int = 1000,
+                 log_freq: int = 50,
                  logdir: str | Path | None = None):
         self.static = static_trainer
         self.dynamic = dynamic_trainer
         self.skip_dynamic = dynamic_trainer is None
         self.sh_up_start_iteration = sh_up_start_iteration
         self.sh_up_period = sh_up_period
+        self.log_freq = log_freq
         self.logdir = Path(logdir) if logdir is not None else None
         if not self.skip_dynamic:
             self.dyn_fragment_profile: str | int = "lean"
@@ -188,3 +197,66 @@ class RoDyGSTrainer:
         if not self.skip_dynamic:
             save_checkpoint(self.logdir / "dynamic_last.ckpt",
                             self.dynamic.state_dict(iteration), iteration)
+
+    # --- mid-training resume ----------------------------------------------
+
+    def save_resume(self, path, iteration: int) -> None:
+        """Write the trainers' whole state after `iteration`."""
+        gens = {"static": self.static.gen}
+        payload = {
+            "iteration": iteration,
+            "rng_key": np.array(
+                [0, self.static.gen.initial_seed() & 0xFFFFFFFF], np.uint32),
+            "static": {"state": self.static.state,
+                       "sh": self.static.active_sh_degree},
+        }
+        if not self.skip_dynamic:
+            gens["dynamic"] = self.dynamic.gen
+            payload["dynamic"] = {
+                "state": self.dynamic.state,
+                "sh": self.dynamic.active_sh_degree,
+                "unique_times": self.dynamic.unique_times}
+        payload["torch_generators"] = {
+            k: g.get_state().numpy() for k, g in gens.items()}
+        save_checkpoint(path, payload, iteration)
+
+    def load_resume(self, path) -> int:
+        """Restore the trainers' state from a resume file written by either
+        package; returns the next iteration. The generators are restored
+        from a file of the port's; a JAX-written file leaves them as they
+        are."""
+        payload, iteration = load_checkpoint(path)
+        st = self.static
+        st.state = _restore(st.state, payload["static"]["state"])
+        st.active_sh_degree = int(payload["static"]["sh"])
+        gens = payload.get("torch_generators", {})
+        if "static" in gens:
+            st.gen.set_state(torch.from_numpy(np.array(gens["static"])))
+        if not self.skip_dynamic and "dynamic" in payload:
+            dyn = self.dynamic
+            dyn.state = _restore(dyn.state, payload["dynamic"]["state"])
+            dyn.active_sh_degree = int(payload["dynamic"]["sh"])
+            dyn.unique_times = torch.tensor(
+                np.array(payload["dynamic"]["unique_times"], np.float32),
+                device=dyn.device)
+            if "dynamic" in gens:
+                dyn.gen.set_state(torch.from_numpy(np.array(gens["dynamic"])))
+        return iteration + 1
+
+
+def _restore(like, loaded):
+    """`loaded` (numpy leaves, in a tree of the same shape as `like`) as
+    tensors on `like`'s devices with `like`'s dtypes."""
+    if isinstance(like, dict):
+        if sorted(like) != sorted(loaded):
+            raise ValueError(f"resume keys {sorted(loaded)} != {sorted(like)}")
+        return {k: _restore(v, loaded[k]) for k, v in like.items()}
+    if isinstance(like, tuple):
+        if len(like) != len(loaded):
+            raise ValueError(f"resume node of {len(loaded)} fields, expected "
+                             f"{type(like).__name__} of {len(like)}")
+        kids = [_restore(a, b) for a, b in zip(like, loaded)]
+        return type(like)(*kids) if hasattr(like, "_fields") else tuple(kids)
+    if like is None:
+        return None
+    return torch.as_tensor(np.array(loaded), device=like.device).to(like.dtype)

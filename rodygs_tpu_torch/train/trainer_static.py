@@ -241,7 +241,7 @@ class ThreeDGSTrainer:
                  spatial_lr_scale: float, device=None, seed: int = 0):
         if cfg.camera_sparse_adam:
             raise NotImplementedError(
-                "camera_sparse_adam is not ported yet (ROADMAP queue 1 item 6)")
+                "camera_sparse_adam is not ported yet (ROADMAP queue 1 item 3)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.loss = loss

@@ -1,6 +1,5 @@
-"""16-bit PNG storers. Port of `rodygs_tpu/utils/store.py` (`RGBStorer`,
-`AssetStorer`; `write_video` waits for the host layer, ROADMAP queue 1
-item 10).
+"""16-bit PNG storers and the mp4 export. Port of
+`rodygs_tpu/utils/store.py` (`RGBStorer`, `AssetStorer`, `write_video`).
 
 An image is clamped to [0, 1] and scaled to 16 bits by truncation, as the
 JAX package's numpy path does (`rodygs_tpu/utils/native.py:109-110`), and
@@ -9,6 +8,8 @@ written by `cv2.imwrite` in BGR order, as the reference writes it.
 
 from __future__ import annotations
 
+import glob
+import os
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -68,3 +69,34 @@ class AssetStorer:
 
     def flush(self) -> None:
         self.viz_storer.flush()
+
+
+def write_video(frames_dir: Path, video_path: Path, fps: int = 30) -> None:
+    """Collect `*.png` under frames_dir, in name order, into an mp4.
+    imageio with libx264 where it is installed (the reference's path),
+    else OpenCV's mp4v encoder."""
+    paths = sorted(glob.glob(os.path.join(str(frames_dir), "*.png")))
+    if not paths:
+        return
+
+    def load(p):
+        img = cv2.imread(p, cv2.IMREAD_UNCHANGED)
+        if img.dtype == np.uint16:
+            img = (img / 257).astype(np.uint8)
+        return img  # BGR
+
+    try:
+        import imageio
+
+        with imageio.get_writer(str(video_path), fps=fps, codec="libx264") as w:
+            for p in paths:
+                w.append_data(load(p)[..., ::-1])
+        return
+    except Exception:
+        pass
+    h, w_ = load(paths[0]).shape[:2]
+    vw = cv2.VideoWriter(str(video_path), cv2.VideoWriter_fourcc(*"mp4v"),
+                         fps, (w_, h))
+    for p in paths:
+        vw.write(load(p))
+    vw.release()

@@ -47,6 +47,7 @@ from rodygs_tpu_torch.evalsuite import pose_opt as tpo
 from rodygs_tpu_torch.models import gaussians as TG
 from rodygs_tpu_torch.ops import image as timage
 from rodygs_tpu_torch.render.camera import make_camera as tmake_camera
+from rodygs_tpu_torch.render.compact import fragment_capacity
 from rodygs_tpu_torch.render.rasterize import render as trender
 from rodygs_tpu_torch.train import losses as tlosses
 from rodygs_tpu_torch.train import trainer_dynamic as ttd
@@ -572,3 +573,124 @@ def test_rgb_storer_matches_jax(tmp_path):
     np.testing.assert_array_equal(
         back, cv2.imread(str(tmp_path / "jax" / "x.png"),
                          cv2.IMREAD_UNCHANGED))
+
+
+# --------------------------------------------------------------------------
+# test-time pose alignment on static-only scenes: drops and isotropy
+# --------------------------------------------------------------------------
+
+SIZE = 128                    # 64 tiles of 16x16
+
+
+def _static_only(tmp_path, big: int, isotropic: bool = False):
+    """A static-only checkpoint of 128 slots: 128 - `big` small gaussians
+    in front of the camera and `big` huge ones that each cover all 64
+    tiles (a demand of about 128 + 63 * big fragments against lean's
+    1,024 slots: 6 x 128 rounded up to whole 512-slot chunks), GT train
+    poses on file, one test view and its datamodule."""
+    rng = np.random.default_rng(4)
+    f32 = lambda x: np.asarray(x, np.float32)
+    n = 128
+    pts = f32(rng.uniform([-0.8, -0.8, 3.0], [0.8, 0.8, 4.0], (n, 3)))
+    store = TG.from_point_cloud(pts, f32(rng.uniform(0.1, 0.9, (n, 3))),
+                                sh_degree=1, capacity=n, device="cpu",
+                                isotropic=isotropic)
+    scales = np.full((n, 1 if isotropic else 3), np.log(0.01), np.float32)
+    scales[:big] = np.log(3.0)
+    store = store._replace(params=store.params._replace(
+        scaling=torch.tensor(scales),
+        opacity=torch.full((n, 1), 0.5)))
+    gq, gt = _arc_poses(np.linspace(-0.05, 0.05, 3))
+    loss = [{"name": "l1", "weight": 1.0, "target": "L1Loss"}]
+    trainer = tts.ThreeDGSTrainer(
+        tts.StaticTrainerConfig(image_width=SIZE, image_height=SIZE,
+                                sh_degree=1, isotropic=isotropic),
+        tlosses.MultiLoss.from_config(loss), store,
+        tlosses_poses(gq, gt), 3.0, device="cpu")
+    tckpt.save_checkpoint(tmp_path / "static_last.ckpt",
+                          trainer.state_dict(100), 100)
+    with open(tmp_path / "train_transforms.json", "w") as f:
+        json.dump({"camera_angle_x": float(np.rad2deg(FOV)),
+                   "frames": [{"transform_matrix": m.tolist()}
+                              for m in _c2w(gq, gt)]}, f)
+    tq, tt = _arc_poses([0.02])
+    cam = tmake_camera(tq[0], tt[0], FOV, FOV, 0.5, device="cpu")
+    with torch.no_grad():
+        p = store.params
+        img = trender(p.xyz, TG.get_features(p), TG.get_opacity(p),
+                      TG.get_scaling(p, isotropic), p.rotation, cam, 1, SIZE,
+                      SIZE, fragment_profile="huge")["rendered_image"].numpy()
+    frames = [{"image": img, "image_name": "view0", "time": 0.5,
+               "fovx": FOV, "fovy": FOV}]
+    dm = _DataModule(_TestSet(frames, tq, tt), _c2w(gq, gt), 3.0)
+    dm.skip_dynamic = True
+    return dm, cam
+
+
+def tlosses_poses(q, t):
+    from rodygs_tpu_torch.train.optim import CameraPoses
+
+    return CameraPoses(torch.tensor(q), torch.tensor(t))
+
+
+def _aligned_evaluator(tmp_path, dm):
+    return tev.RoDyGSEvaluator(str(tmp_path), dm, None, tmp_path / "out",
+                               tmp_path / "static_last.ckpt", None,
+                               camera_lr=5e-5, num_opts=2, device="cpu")
+
+
+def test_pose_steps_never_render_clipped(tmp_path, monkeypatch):
+    """A few huge static gaussians push the pose render's demand past
+    lean's capacity: every pose step (a render with gradients) must drop
+    nothing. The probe before the steps renders without gradients."""
+    dm, _ = _static_only(tmp_path, big=20)
+    seen = []
+
+    def recording(*args, **kwargs):
+        out = trender(*args, **kwargs)
+        if kwargs.get("pose_grad_only") and torch.is_grad_enabled():
+            seen.append((int(out["num_fragments"]), int(out["dropped"])))
+        return out
+
+    monkeypatch.setattr(tev, "render", recording)
+    ev = _aligned_evaluator(tmp_path, dm)
+    result = ev.eval(eval_batch_size=1)
+    assert len(seen) == 2
+    lean = fragment_capacity(TG.capacity_of(ev.static_store), "lean")
+    assert all(demand > lean for demand, _ in seen), seen
+    assert [d for _, d in seen] == [0, 0], seen
+    assert ev.pose_render_stats == {"steps": 2, "retried": 0, "dropped": 0}
+    assert np.isfinite(result["viz"]["psnr"])
+
+
+def test_a_dropping_pose_step_is_taken_again(tmp_path):
+    """A step whose render drops fragments escalates the profile and renders
+    again: its image is the unclipped one."""
+    dm, cam = _static_only(tmp_path, big=20)
+    ev = _aligned_evaluator(tmp_path, dm)
+    ev.pose_fragment_profile = "lean"
+    cam = cam._replace(q_c2w=cam.q_c2w.clone().requires_grad_(True))
+    img = ev._render_rgb_for_poseopt(cam)
+    assert ev.pose_fragment_profile != "lean"
+    assert ev.pose_render_stats == {"steps": 1, "retried": 1, "dropped": 0}
+    full = ev._render_static(cam, "huge")
+    assert int(full["dropped"]) == 0
+    np.testing.assert_array_equal(img.detach().numpy(),
+                                  full["rendered_image"].detach().numpy())
+    img.sum().backward()
+    assert torch.isfinite(cam.q_c2w.grad).all()
+
+
+def test_alignment_on_an_isotropic_checkpoint(tmp_path):
+    """An isotropic static model ([C, 1] log-scales) through test-time pose
+    alignment: the pose render expands the scales as the view render
+    does."""
+    dm, cam = _static_only(tmp_path, big=0, isotropic=True)
+    ev = _aligned_evaluator(tmp_path, dm)
+    assert ev.static_isotropic
+    result = ev.eval(eval_batch_size=1)
+    assert np.isfinite(result["viz"]["psnr"]) and result["viz"]["psnr"] > 20
+    with torch.no_grad():
+        got = ev._render_rgb_for_poseopt(cam)
+    np.testing.assert_allclose(got.numpy(), dm.get_test_dset()[0]["image"],
+                               atol=2e-5)
