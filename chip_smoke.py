@@ -54,6 +54,32 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
                between the two: expand's table and segsum's rows were
                written just before by kernels that move more than the L2
                holds.
+  5a. variants — on the trained state of phase 3 at 512x512: the legacy
+               path (`render(binning_mode="legacy")`: broadcast-tier
+               binning, records gather, the tile kernels) forward and
+               backward with launch counters zeroed just before and read
+               just after (tile_fwd and tile_bwd, neither expand nor
+               segsum); against the compact path over the same circle
+               rects: the same fragment counts, bit-identical outputs on
+               every tile whose fragment order agrees, and every order
+               difference a tie of the quantized depth key; the legacy
+               records put in the compact order equal to the compact
+               path's sorted records; the tile kernels on the legacy
+               records (P a multiple of 128, 2,048 zero dummy columns, row
+               13 the constant 1) against their plain versions; the legacy
+               reduction (`index_add_`) within segsum's bar of segsum on
+               the same fragment gradients; the legacy render and its
+               gradients at 128x128 against the CPU. Then the bf16 payload
+               (1e-2 image, 3e-2 gradients against float32) and the gather
+               unsort and gather records (bit-identical to sort) on the
+               trainer's render, all four kernels launched; both renders
+               against the dense oracle (render/composite_ref.py) at
+               256x256 with 2,000 gaussians (2e-5 image / alpha, 2e-4 depth
+               / normal; the compact render off the tiles whose order a
+               depth-key tie changes, where the difference is printed); 50 steps
+               of a second bench trainer with `camera_sparse_adam`, each
+               moving only its frame's pose row, moments and count; and the
+               render's forward + backward times, legacy and compact.
   5b. 1080p  — one captured 1920x1080 render of 240,000 seeded gaussians in
                rows mode (8,160 tiles, 40-row table): expand and segsum
                against their plain versions, slot ranges, warm and cold
@@ -130,7 +156,10 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
                `launches_eval`: inside the two eval() calls of phase 7;
                `launches_bands`: in its three banded renders;
                `launches_cli`: in each CLI of phase 8), and last
-               {"ok": true, "device": ...}.
+               {"ok": true, "device": ...}. The tile kernels' rows carry
+               `launches_legacy` (one legacy render of phase 5a),
+               `launches_variants` (its four variant renders) and
+               `legacy_ms`, their times on the legacy records.
 
 Without CUDA, or run from a directory without the package, it exits with
 a non-zero code before printing any result. Imports neither JAX nor the
@@ -192,6 +221,15 @@ SOURCES = {
     "segsum": ("rodygs_tpu_torch/csrc/segsum.cu",
                "rodygs_tpu/render/compact.py:850"),
 }
+
+
+def card_name_and_limit() -> str:
+    """The card's name and power limit as nvidia-smi reports them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
+        check=True)
+    return smi.stdout.strip().splitlines()[0]
 
 
 def log(msg: str) -> None:
@@ -629,7 +667,8 @@ def phase_1080p(device, n=240_000, width=1920, height=1080):
     return errs, timings
 
 
-def bench_trainer(device, size=512, N=100_000, capacity=131072):
+def bench_trainer(device, size=512, N=100_000, capacity=131072,
+                  camera_sparse_adam=False):
     """bench.py's 512^2 / 100k workload, built through the port."""
     import torch
     from rodygs_tpu_torch.models import gaussians as G
@@ -662,7 +701,8 @@ def bench_trainer(device, size=512, N=100_000, capacity=131072):
     cfg = StaticTrainerConfig(
         image_width=W, image_height=H, sh_degree=3,
         densification_interval=0, densify_from_iter=10**9,
-        camera_rotation_lr=1e-5, camera_translation_lr=1e-6)
+        camera_rotation_lr=1e-5, camera_translation_lr=1e-6,
+        camera_sparse_adam=camera_sparse_adam)
     trainer = ThreeDGSTrainer(cfg, loss, store, poses, spatial_lr_scale=4.0,
                               device=device)
     gt_rng = np.random.default_rng(11)
@@ -743,6 +783,340 @@ def phase_train(device, iterations=200, **scene):
         f"num_fragments={frags[-1]} settled_profile={trainer.fragment_profile!r}")
     log(f"[train] step_ms_all={[round(x * 1e3, 2) for x in step_s]}")
     return trainer, batch_for, launches, iterations
+
+
+# the variants phase: the oracle scene, the sparse-Adam run, timing reps
+ORACLE_N, ORACLE_SIZE = 2000, 256
+SPARSE_STEPS = 50
+VARIANT_REPS = 20
+OUT_KEYS = ("rendered_image", "rendered_depth", "rendered_alpha",
+            "rendered_normal")
+
+
+def _image_tol(key):
+    return 2e-4 if key in ("rendered_depth", "rendered_normal") else 2e-5
+
+
+def _tile_pixels(tiles, tiles_x, width, height, device):
+    """[H, W] bool: the pixels of the given tile ids."""
+    import torch
+
+    ys = torch.arange(height, device=device) // 16
+    xs = torch.arange(width, device=device) // 16
+    tid = ys[:, None] * tiles_x + xs[None, :]
+    return torch.isin(tid, tiles)
+
+
+def _render_grads(params, alive, cam, sh, width, height, weights, **kw):
+    """render() forward and backward under a fixed linear loss (seeded
+    weights on image, depth and alpha: the cotangent does not depend on the
+    output); the outputs and the gradients of the six parameter tensors."""
+    from rodygs_tpu_torch.models import gaussians as G
+    from rodygs_tpu_torch.render.rasterize import render
+
+    leaves = [x.detach().clone().requires_grad_(True) for x in params]
+    q = type(params)(*leaves)
+    out = render(q.xyz, G.get_features(q), G.get_opacity(q), G.get_scaling(q),
+                 q.rotation, cam, sh, width, height, alive=alive, **kw)
+    sum((out[k] * w).sum() for k, w in weights.items()).backward()
+    return ({k: v.detach() if hasattr(v, "detach") else v
+             for k, v in out.items()}, [x.grad for x in leaves])
+
+
+def _scaled(a, b):
+    return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+
+
+def phase_variants(device, trainer, batch_for):
+    """The render variants on the static bench's trained state at 512^2
+    (phase 3b): the legacy path end to end (launches counted), its
+    binning's order against the compact one's, the tile kernels on the
+    legacy records against their plain versions, the legacy reduction
+    against segsum, the legacy render on the card against the CPU, the bf16
+    payload and the gather strategies, the dense oracle, 50 steps of the
+    row-sparse camera Adam, and the render times. Returns
+    (launches_legacy, launches_variants, {kernel: max_abs_err},
+    {kernel: legacy-layout ms})."""
+    import contextlib
+
+    import torch
+    from rodygs_tpu_torch import kernel_check as KC
+    from rodygs_tpu_torch import kernels
+    from rodygs_tpu_torch.models import gaussians as G
+    from rodygs_tpu_torch.render import compact as C
+    from rodygs_tpu_torch.render import rasterize as R
+    from rodygs_tpu_torch.render import tile_kernel as TK
+    from rodygs_tpu_torch.render.composite_ref import composite_reference
+    from rodygs_tpu_torch.render.preprocess import preprocess
+    from rodygs_tpu_torch.train.trainer_static import make_camera_from_poses
+
+    t_phase = time.perf_counter()
+    st = trainer.state
+    params, alive = st.store.params, st.store.alive
+    cam = make_camera_from_poses(st.poses, batch_for(0))
+    sh = trainer.active_sh_degree
+    W = H = int(trainer.cfg.image_width)
+    tx = -(-W // 16)
+    n = params.xyz.shape[0]
+    wide = C.fragment_capacity(n, "wide")
+    gen = torch.Generator(device=device).manual_seed(23)
+    weights = {"rendered_image": torch.randn((H, W, 3), generator=gen,
+                                             device=device),
+               "rendered_depth": torch.randn((H, W), generator=gen,
+                                             device=device),
+               "rendered_alpha": torch.randn((H, W), generator=gen,
+                                             device=device)}
+    rg = lambda **kw: _render_grads(params, alive, cam, sh, W, H, weights,
+                                    **kw)
+    errs = {}
+
+    # the legacy path end to end: its launches alone
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out_l, g_l = rg(binning_mode="legacy")
+    torch.cuda.synchronize()
+    launches_legacy = dict(kernels.LAUNCHES)
+    log(f"[variants] legacy render fwd+bwd at {W}x{H}: fragments="
+        f"{int(out_l['num_fragments'])} overflow={bool(out_l['overflow'])} "
+        f"dropped={int(out_l['dropped'])}; launches {launches_legacy}")
+    require(launches_legacy["tile_fwd"] >= 1 and launches_legacy["tile_bwd"] >= 1,
+            f"the legacy path launched no tile kernel: {launches_legacy}")
+    require(launches_legacy["expand"] == 0 and launches_legacy["segsum"] == 0,
+            f"the legacy path launched a compact kernel: {launches_legacy}")
+    require(not bool(out_l["overflow"]) and int(out_l["dropped"]) == 0,
+            "the legacy binning overflows at 'lean'")
+    require(all(bool(torch.isfinite(g).all()) for g in g_l)
+            and float(g_l[0].abs().max()) > 0,
+            "legacy gradients not finite or zero")
+
+    # the compact path over the same circle rects, and the two orders
+    out_c, g_c = rg(tight_rect=False, fragment_profile="wide")
+    require(int(out_c["dropped"]) == 0, "the compact render drops at 'wide'")
+    require(int(out_c["num_fragments"]) == int(out_l["num_fragments"]),
+            "legacy and compact fragment counts differ")
+    s = KC.capture_legacy(params, alive, cam, sh, W, H)
+    order = KC.legacy_order(s, wide)
+    re_tiles = order["reordered"]
+    n_tiles = s["binning"].tile_counts.shape[0]
+    same = ~_tile_pixels(re_tiles, tx, W, H, params.xyz.device)
+    diff = {k: float((out_l[k] - out_c[k]).abs().max()) for k in OUT_KEYS}
+    for k in OUT_KEYS:
+        require(torch.equal(out_l[k][same], out_c[k][same]),
+                f"legacy {k} differs from compact on a tile of equal order")
+    log(f"[variants] legacy vs compact forward (circle rects): bit-identical "
+        f"on the {n_tiles - re_tiles.numel()} of {n_tiles} tiles whose "
+        f"fragment order agrees; the other {re_tiles.numel()} differ in "
+        f"order only where two depths share their {C.depth_key_bits(tx, tx)} "
+        f"key bits ({order['tie_pairs']} adjacent tied pairs among "
+        f"{order['fragments']} fragments; the legacy sort takes float32 "
+        f"depth, the compact key the quantized depth with ties in gaussian "
+        f"order), max |diff| there {diff}")
+    log("[variants] legacy vs compact render() gradients, max |diff| / max: "
+        + " ".join(f"{_scaled(a, b):.3g}" for a, b in zip(g_l, g_c)))
+
+    # the legacy records in the compact order are the compact's records
+    sc = KC.capture_stages(params, alive, cam, sh, W, H, "wide", False, 5,
+                           include_normal=True)
+    total = order["fragments"]
+    perm = order["order"]
+    rec_l = s["records"][:, perm]
+    require(torch.equal(rec_l, sc["records"][:, :total]),
+            "the legacy records in compact order differ from the compact "
+            "path's sorted records")
+    log(f"[variants] the legacy gather's records, put in the compact order, "
+        f"equal the compact path's sorted records ({total} columns)")
+
+    # the tile kernels on the legacy layout against their plain versions
+    b = s["binning"]
+    e = KC.check_tiles(s["records"], b.tile_starts, b.tile_counts, s["off"],
+                       tx, True)
+    errs.update(e)
+    log(f"[variants] tile kernels on the legacy records (P="
+        f"{s['records'].shape[1]}, a multiple of 128, {R.DUMMY_COLS} zero "
+        f"dummy columns, row 13 = 1): max_abs_err={e}; backward twice: "
+        f"equal bits")
+
+    # the legacy reduction (the gather's backward, index_add_) against
+    # segsum, on the compact backward's per-fragment gradients
+    d_rec = TK.rasterize_bwd_impl(sc["records"], sc["cb"].tile_starts,
+                                  sc["cb"].tile_counts, sc["off"], sc["out"],
+                                  sc["gout"], tx, True)
+    d_leg = torch.zeros_like(s["records"])
+    d_leg[:, perm] = d_rec[:, :total]
+    with torch.enable_grad():
+        leaf = R._pack_records(s["splats"]).requires_grad_(True)
+        leaf.index_select(1, b.padded_gid).backward(d_leg)
+    seg = C.segment_sum_rows(sc["d_presort"], sc["table"], sc["cb"].bases,
+                             sc["cb"].f_kept)[:, :n]
+    red = leaf.grad[:C.NUM_REC_ROWS, :n]
+    e_red = float((red - seg).abs().max())
+    rel = e_red / max(float(seg.abs().max()), 1e-30)
+    log(f"[variants] legacy reduction (index_add_) vs segsum on the same "
+        f"fragment gradients: max |diff| {e_red:.3g}, scaled {rel:.3g} (bar "
+        f"{KC.TOL_SEGSUM_SCALED}); equal elements "
+        f"{100 * float((red == seg).double().mean()):.2f}%")
+    require(rel <= KC.TOL_SEGSUM_SCALED, "legacy reduction differs from segsum")
+    errs["segsum"] = e_red
+
+    # the legacy render on the card against the CPU (plain versions)
+    p5, cam5 = KC.random_scene(5000, 3, device)
+    w5 = {k: v[:128, :128].contiguous() for k, v in weights.items()}
+    gpu = _render_grads(p5, None, cam5, 3, 128, 128, w5,
+                        binning_mode="legacy")
+    cpu = _render_grads(type(p5)(*[x.cpu() for x in p5]), None,
+                        type(cam5)(*[x.cpu() for x in cam5]), 3, 128, 128,
+                        {k: v.cpu() for k, v in w5.items()},
+                        binning_mode="legacy")
+    e_img = {k: float((gpu[0][k].cpu() - cpu[0][k]).abs().max())
+             for k in OUT_KEYS}
+    e_grad = [_scaled(a.cpu(), b) for a, b in zip(gpu[1], cpu[1])]
+    log(f"[variants] legacy render 128x128 n=5000 cuda vs cpu: {e_img}; "
+        f"gradients scaled {[f'{x:.3g}' for x in e_grad]}")
+    require(all(e_img[k] <= (2e-4 if k in ("rendered_depth",
+                                           "rendered_normal") else 1e-4)
+                for k in OUT_KEYS), "legacy render cuda vs cpu")
+    require(max(e_grad) <= KC.TOL_BWD_SCALED, "legacy gradients cuda vs cpu")
+
+    # the compact variants on the trainer's own render
+    prof = trainer.fragment_profile
+    kw = dict(fragment_profile=prof, include_normal=False)
+
+    @contextlib.contextmanager
+    def knob(name, value):
+        old = getattr(R, name)
+        setattr(R, name, value)
+        try:
+            yield
+        finally:
+            setattr(R, name, old)
+
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    base = rg(**kw)
+    bf16 = rg(bf16_records=True, **kw)
+    with knob("_BWD_UNSORT", "gather"):
+        g_unsort = rg(**kw)
+    with knob("_FWD_RECORDS", "gather"):
+        g_records = rg(**kw)
+    torch.cuda.synchronize()
+    launches_variants = dict(kernels.LAUNCHES)
+    log(f"[variants] bf16 / gather-unsort / gather-records renders "
+        f"(profile {prof!r}): launches {launches_variants}")
+    require(all(launches_variants[k] > 0 for k in kernels.KERNELS),
+            f"a kernel never launched in the variants: {launches_variants}")
+    e_bf = float((bf16[0]["rendered_image"]
+                  - base[0]["rendered_image"]).abs().max())
+    g_bf = max(_scaled(a, b) for a, b in zip(bf16[1], base[1]))
+    log(f"[variants] bf16 payload vs float32: image {e_bf:.3g} (bar 1e-2), "
+        f"gradients scaled {g_bf:.3g} (bar 3e-2)")
+    require(e_bf < 1e-2 and g_bf < 3e-2, "bf16 payload off its envelope")
+    for name, (o, g) in (("gather unsort", g_unsort),
+                         ("gather records", g_records)):
+        require(all(torch.equal(o[k], base[0][k]) for k in OUT_KEYS)
+                and all(torch.equal(a, b) for a, b in zip(g, base[1])),
+                f"{name} differs from sort")
+    log("[variants] gather unsort and gather records: outputs and gradients "
+        "bit-identical to sort")
+
+    # the dense oracle on a scene small enough for it
+    po, camo = KC.random_scene(ORACLE_N, 11, device)
+    args = (po.xyz, G.get_features(po), G.get_opacity(po), G.get_scaling(po),
+            po.rotation)
+    with torch.no_grad():
+        sp = preprocess(po.xyz, G.get_scaling(po), po.rotation,
+                        G.get_opacity(po), G.get_features(po), 3, camo,
+                        ORACLE_SIZE, ORACLE_SIZE)
+        ref = composite_reference(sp, ORACLE_SIZE, ORACLE_SIZE)
+        leg = R.render(*args, camo, 3, ORACLE_SIZE, ORACLE_SIZE,
+                       binning_mode="legacy")
+        com = R.render(*args, camo, 3, ORACLE_SIZE, ORACLE_SIZE,
+                       fragment_profile="wide")
+        so = KC.capture_legacy(po, None, camo, 3, ORACLE_SIZE, ORACLE_SIZE)
+        o_order = KC.legacy_order(so, C.fragment_capacity(ORACLE_N, "wide"))
+    require(not bool(leg["overflow"]) and int(com["dropped"]) == 0,
+            "the oracle scene overflows")
+    txo = -(-ORACLE_SIZE // 16)
+    tied = _tile_pixels(o_order["reordered"], txo, ORACLE_SIZE, ORACLE_SIZE,
+                        device)
+    e_leg = {k: float((leg[k] - ref[k]).abs().max()) for k in OUT_KEYS}
+    e_com = {k: float((com[k] - ref[k])[~tied].abs().max()) for k in OUT_KEYS}
+    e_tied = {k: float((com[k] - ref[k])[tied].abs().max()) if bool(tied.any())
+              else 0.0 for k in OUT_KEYS}
+    log(f"[variants] dense oracle {ORACLE_SIZE}x{ORACLE_SIZE} n={ORACLE_N}: "
+        f"legacy render {e_leg}; compact render off the "
+        f"{o_order['reordered'].numel()} tiles where quantized-depth ties "
+        f"reorder it {e_com}, on them {e_tied}")
+    require(all(e_leg[k] <= _image_tol(k) for k in OUT_KEYS),
+            "legacy render differs from the dense oracle")
+    require(all(e_com[k] <= _image_tol(k) for k in OUT_KEYS),
+            "compact render differs from the dense oracle")
+    del ref, sp, so
+
+    # the row-sparse camera Adam over 50 steps
+    sparse, sparse_batch, _ = bench_trainer(
+        device, size=W, N=int(alive.sum()), capacity=n,
+        camera_sparse_adam=True)
+    moved = []
+    for it in range(1, SPARSE_STEPS + 1):
+        b_it = sparse_batch(it - 1)
+        f = b_it.frame_idx
+        before = sparse.state
+        m = sparse.train_iteration(b_it, it)
+        after = sparse.state
+        require(math.isfinite(float(m["loss"])), "sparse Adam: loss")
+        rows = torch.arange(after.cam_opt.count.shape[0], device=device) != f
+        require(torch.equal(after.cam_opt.count[rows],
+                            before.cam_opt.count[rows])
+                and int(after.cam_opt.count[f]) == int(before.cam_opt.count[f]) + 1,
+                f"sparse Adam step {it}: counts {after.cam_opt.count.tolist()}")
+        for tree in ("poses", "mu", "nu"):
+            a = (after.poses if tree == "poses"
+                 else getattr(after.cam_opt, tree))
+            bb = (before.poses if tree == "poses"
+                  else getattr(before.cam_opt, tree))
+            require(all(torch.equal(x[rows], y[rows]) for x, y in zip(a, bb)),
+                    f"sparse Adam step {it}: {tree} of another frame moved")
+        moved.append(max(float((x[f] - y[f]).abs().max())
+                         for x, y in zip(after.poses, before.poses)))
+    require(min(moved) > 0, "sparse Adam: the batch frame's pose never moved")
+    log(f"[variants] row-sparse camera Adam, {SPARSE_STEPS} steps: only the "
+        f"batch frame's pose row, moments and count moved each step; counts "
+        f"{sparse.state.cam_opt.count.tolist()}; batch-row |dpose| min "
+        f"{min(moved):.3g} max {max(moved):.3g}")
+    del sparse
+
+    # render times, forward and backward, synchronised medians
+    def median_ms(**kw_):
+        ts = []
+        for _ in range(VARIANT_REPS + 2):
+            t = time.perf_counter()
+            rg(**kw_)
+            torch.cuda.synchronize()
+            ts.append((time.perf_counter() - t) * 1e3)
+        return float(np.median(ts[2:]))
+
+    times = {"legacy 'lean'": median_ms(binning_mode="legacy"),
+             f"compact {prof!r} (the trainer's)": median_ms(**kw),
+             "compact 'wide' circle rects": median_ms(
+                 tight_rect=False, fragment_profile="wide")}
+    out_leg = TK.rasterize_fwd_impl(s["records"], b.tile_starts,
+                                    b.tile_counts, s["off"], tx)
+    legacy_ms = {
+        "tile_fwd": time_ms(lambda: TK.rasterize_fwd_impl(
+            s["records"], b.tile_starts, b.tile_counts, s["off"], tx)),
+        "tile_bwd": time_ms(lambda: TK.rasterize_bwd_impl(
+            s["records"], b.tile_starts, b.tile_counts, s["off"], out_leg,
+            sc["gout"], tx))}
+    smi = card_name_and_limit()
+    log(f"[variants] render fwd+bwd at {W}x{H}, median of {VARIANT_REPS} "
+        f"synchronised: " + " ".join(f"{k} {v:.3f} ms" for k, v in
+                                      times.items())
+        + f"; tile kernels on the legacy records: tile_fwd "
+        f"{legacy_ms['tile_fwd']:.4f} ms, tile_bwd {legacy_ms['tile_bwd']:.4f}"
+        f" ms (with its zero fill of [16, {s['records'].shape[1]}]); card "
+        f"{smi}")
+    log(f"[variants] phase {time.perf_counter() - t_phase:.2f} s")
+    return launches_legacy, launches_variants, errs, legacy_ms
 
 
 def fragment_op(name, shapes, cap):
@@ -1688,17 +2062,19 @@ def _json_after(text, prefix):
 def time_embedding_columns(device, frames=CLI_FRAMES, multires=CLI_MULTIRES):
     """The port's time embedding at the shipped 26 linear frequencies for
     the scene's frame times, on the card and on the CPU, against two
-    float64 embeddings: of the same float32 arguments t*f*pi (the
-    sin/cos implementation's error) and of the exact arguments (the
+    float64 embeddings: of the same float32 arguments t*(f*pi) with the
+    JAX package's frequency table (the sin/cos implementation's error) and
+    of the exact arguments (the
     float32 rounding of t*f*pi as well). Returns {comparison: [(column,
     max |difference|)]} for the columns past 1e-6."""
     import torch
-    from rodygs_tpu_torch.models.motion import embed_time
+    from rodygs_tpu_torch.models.motion import embed_time, xla_linspace
 
     t = torch.arange(frames, dtype=torch.float32) / (frames - 1)
     names = ["t"] + [f"{fn}(f{k})" for k in range(multires)
                      for fn in ("sin", "cos")]
-    freqs = torch.linspace(1.0, 2.0 ** (multires - 1), multires)
+    freqs = torch.from_numpy(xla_linspace(1.0, 2.0 ** (multires - 1),
+                                          multires))
     arg32 = (t[:, None] * (freqs * math.pi)).double()
     arg64 = (t.double()[:, None] * torch.linspace(
         1.0, 2.0 ** (multires - 1), multires, dtype=torch.float64) * math.pi)
@@ -1913,6 +2289,8 @@ def main() -> int:
     log(f"[check] 512x512 trained state max_abs_err={e512}")
     timings = time_kernels(s)
     del s
+    launches_legacy, launches_variants, e_var, legacy_ms = phase_variants(
+        device, trainer, batch_for)
     e1080, t1080 = phase_1080p(device)
     del trainer, st
     torch.cuda.empty_cache()
@@ -1928,12 +2306,15 @@ def main() -> int:
         t = timings[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
+                     "launches_legacy": launches_legacy[name],
+                     "launches_variants": launches_variants[name],
                      "launches_joint": launches_joint[name],
                      "launches_eval": launches_eval[name],
                      "launches_bands": launches_bands[name],
                      "launches_cli": {c: v[name]
                                       for c, v in launches_cli.items()},
                      "max_abs_err": max(errs[name], e512[name],
+                                        e_var.get(name, 0.0),
                                         e1080.get(name, 0.0), e_joint[name],
                                         e_eval[name], e_cli[name]),
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -1943,21 +2324,22 @@ def main() -> int:
             rows[-1].update(cold_ms=t["cold_ms"],
                             library_cold_ms=t["library_cold_ms"],
                             rows_1080p=t1080[name])
+        else:                # the tile kernels: on the legacy records
+            rows[-1].update(legacy_ms=legacy_ms[name])
         log(f"[time] {name}: kernel {t['ms']:.4f} ms, plain "
             f"{t['plain_ms']:.4f} ms, library {t['library_ms']}, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), launches in "
             f"{iterations} steps "
-            f"{launches[name]}, in {JOINT_ITERATIONS[1] - JOINT_ITERATIONS[0] + 1} "
+            f"{launches[name]}, in one legacy render "
+            f"{launches_legacy[name]}, in the variants' four renders "
+            f"{launches_variants[name]}, in "
+            f"{JOINT_ITERATIONS[1] - JOINT_ITERATIONS[0] + 1} "
             f"joint iterations {launches_joint[name]}, inside eval() "
             f"{launches_eval[name]}, in the banded renders "
             f"{launches_bands[name]}, in the CLIs "
             f"{rows[-1]['launches_cli']}")
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, timeout=60,
-        check=True)
-    print(smi.stdout.strip().splitlines()[0])
+    print(card_name_and_limit())
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -130,6 +130,74 @@ def capture_stages(params: G.GaussianParams, alive, camera, sh_degree: int,
 
 
 @torch.no_grad()
+def capture_legacy(params: G.GaussianParams, alive, camera, sh_degree: int,
+                   width: int, height: int, profile: str = "lean") -> dict:
+    """The legacy path's binning (render/binning.py) and the records it
+    gathers for the tile kernels: [16, P] with P a multiple of CHUNK = 128,
+    DUMMY_COLS zero columns behind the gaussians' and row 13 the constant
+    alpha feature (rasterize._pack_records)."""
+    from .render.binning import bin_splats
+    from .render.rasterize import _pack_records
+
+    tx, ty, splats, rec13 = _splat_rows(params, alive, camera, sh_degree,
+                                        width, height)
+    b = bin_splats(splats.mean2d, splats.depth, splats.radius, splats.visible,
+                   tx, ty, profile=profile)
+    records = _pack_records(splats).index_select(1, b.padded_gid).contiguous()
+    off = torch.zeros((1,), dtype=torch.int32, device=records.device)
+    return dict(tx=tx, ty=ty, splats=splats, rec13=rec13, binning=b,
+                records=records, off=off)
+
+
+@torch.no_grad()
+def legacy_order(s: dict, capacity: int) -> dict:
+    """The legacy binning of `capture_legacy` against the compact one over
+    circle rects (tight=False, one band, `capacity` slots): the same tile
+    counts, and per tile the same gaussians in an order that may differ
+    only where two depths agree in their quantized key bits. The legacy
+    sort orders by the float32 depth (ties in tier order), the compact sort
+    by the key's depth_key_bits (ties in gaussian order). Returns
+    {"reordered": i64 ids of the tiles whose order differs, "fragments":
+    the fragment count, "tie_pairs": adjacent fragment pairs of one tile
+    whose quantized depths are equal}; raises if the counts differ or an
+    order differs otherwise."""
+    splats, tx, ty, b = s["splats"], s["tx"], s["ty"], s["binning"]
+    cb = C.build_binning(splats, tx, ty, capacity, tight=False)
+    _require(int(cb.dropped) == 0, "legacy_order: the compact binning drops")
+    _require(torch.equal(cb.tile_counts, b.tile_counts),
+             "legacy_order: tile counts differ")
+    table = C.build_table(s["rec13"], cb.aux_rows).contiguous()
+    db = C.depth_key_bits(tx, ty)
+    key, _ = C.expand_fragments(table, cb.bases, cb.f_kept, tx, db,
+                                C.N_CORE_ROWS)
+    perm = torch.sort(key, stable=True).indices
+    dev = key.device
+    slots = torch.arange(key.shape[0], device=dev, dtype=torch.float32)
+    owner = torch.searchsorted(table[C.ROW_OFF].contiguous(), slots,
+                               right=True) - 1
+    counts = b.tile_counts.to(torch.int64)
+    total = int(counts.sum())
+    compact_gid = owner[perm[:total]]
+    legacy_gid = b.padded_gid[:total].to(torch.int64)
+    tile_of = torch.repeat_interleave(
+        torch.arange(counts.shape[0], device=dev), counts)
+    qd = C.quantize_depth_bits(splats.depth, db)[legacy_gid]
+    # the legacy order re-sorted by (tile, quantized depth, gaussian id)
+    order = torch.sort(legacy_gid, stable=True).indices
+    order = order[torch.sort(qd[order], stable=True).indices]
+    order = order[torch.sort(tile_of[order], stable=True).indices]
+    _require(torch.equal(legacy_gid[order], compact_gid),
+             "legacy_order: the orders differ beyond quantized-depth ties")
+    same_tile = tile_of[1:] == tile_of[:-1]
+    return {
+        "reordered": torch.unique(tile_of[compact_gid != legacy_gid]),
+        "fragments": total,
+        "order": order,
+        "tie_pairs": int((same_tile & (qd[1:] == qd[:-1])).sum()),
+    }
+
+
+@torch.no_grad()
 def check_bands(params: G.GaussianParams, alive, camera, sh_degree: int,
                 width: int, height: int, profile, tight, bands: int,
                 seed: int = 1):

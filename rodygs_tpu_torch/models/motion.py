@@ -9,16 +9,20 @@ heads are two batched weight tensors (`heads.w0 [B, W/2, W/4]`,
 the JAX package's nested dict with the same names and layouts, so Adam
 walks them as leaves and state converts one-to-one (convert.py).
 
-With the shipped 26 frequencies, t*f reaches 2^25*pi in float32: features
-past ~2^15*pi depend on the sin/cos implementation (XLA, PyTorch CPU and
-CUDA differ there) and are only bounded.
+With the shipped 26 linear frequencies (1 to 2^25), t*f*pi lies past 2^22
+for most times, where float32 rounding of the argument alone decides the
+feature. So the frequency table is built with the float32 operations XLA
+emits for `jnp.linspace` (`xla_linspace`), bit for bit, and each argument
+is rounded as XLA forms it (`embed_time`).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -37,17 +41,47 @@ class MotionNetConfig(NamedTuple):
         return self.t_emb_multires * 2 + 1
 
 
+def xla_linspace(start: float, stop: float, num: int) -> np.ndarray:
+    """float32 `jnp.linspace(start, stop, num)` as XLA computes it, bit for
+    bit. JAX writes start * (1 - step) + stop * step with step = iota / div
+    and appends `stop`; XLA turns the division into a product with the
+    float32 reciprocal and folds stop * (iota * r) into iota * (stop * r),
+    each a float32 operation (read from the compiled HLO)."""
+    f32 = np.float32
+    if num == 1:
+        return np.array([start], f32)
+    r = f32(1) / f32(num - 1)
+    c = f32(stop) * r
+    i = np.arange(num - 1, dtype=f32)
+    head = f32(start) * (f32(1) - i * r) + i * c
+    return np.concatenate([head, np.array([stop], f32)]).astype(f32)
+
+
+@functools.lru_cache(maxsize=None)
+def _frequencies(multires: int, log_sampling: bool,
+                 device: torch.device) -> torch.Tensor:
+    """[multires] float32 frequencies, the JAX package's table; read only."""
+    if log_sampling:
+        freqs = np.float32(2.0) ** xla_linspace(0.0, multires - 1, multires)
+    else:
+        freqs = xla_linspace(1.0, 2.0 ** (multires - 1), multires)
+    return torch.from_numpy(freqs.astype(np.float32)).to(device)
+
+
 def embed_time(t, multires: int, log_sampling: bool) -> torch.Tensor:
     """[...]-shaped timesteps -> [..., 2*multires+1] Fourier features,
-    ordered [t, sin(t f1), cos(t f1), sin(t f2), ...]."""
+    ordered [t, sin(t f1), cos(t f1), sin(t f2), ...].
+
+    The arguments are rounded as XLA forms them from the JAX package's
+    `t[..., None] * (freqs * pi)`: t * (f * pi), except for a single time,
+    whose broadcast XLA merges with pi's into f * (t * pi)."""
     t = torch.as_tensor(t, dtype=torch.float32)
-    if log_sampling:
-        freqs = 2.0 ** torch.linspace(0.0, multires - 1, multires,
-                                      device=t.device)
+    freqs = _frequencies(multires, log_sampling, t.device)
+    pi = torch.tensor(math.pi, dtype=torch.float32, device=t.device)
+    if t.numel() == 1:
+        tf = freqs * (t[..., None] * pi)
     else:
-        freqs = torch.linspace(1.0, 2.0 ** (multires - 1), multires,
-                               device=t.device)
-    tf = t[..., None] * (freqs * math.pi)
+        tf = t[..., None] * (freqs * pi)
     sincos = torch.stack([torch.sin(tf), torch.cos(tf)], dim=-1).reshape(
         *t.shape, 2 * multires)
     return torch.cat([t[..., None], sincos], dim=-1)

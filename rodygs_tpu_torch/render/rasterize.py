@@ -1,14 +1,22 @@
 """Public differentiable renderer. Port of `rodygs_tpu/render/rasterize.py`
-(compact path, one device, fp32 payload).
+on one device.
 
 `render()` takes activated per-Gaussian tensors and a `Camera` and returns
 the JAX package's output dict: rendered_image / rendered_depth /
 rendered_normal / rendered_alpha / radii / visibility_filter /
 num_fragments / overflow / dropped. It runs on the device of its inputs.
 
-Gradient path: params -> preprocess (torch autograd) -> composite_compact
-(autograd.Function over the expand / tile-forward kernels, backward through
-the tile-backward and segsum kernels) -> image.
+Two binning backends (`binning_mode`):
+  * "compact" (default): params -> preprocess (torch autograd) ->
+    composite_compact (autograd.Function over the expand / tile-forward
+    kernels, backward through the tile-backward and segsum kernels) ->
+    image. Options: the bf16 payload, `fwd_records` / `bwd_unsort`, sort
+    bands, the tight-rect modes.
+  * "legacy": the broadcast-tier binning (render/binning.py), a records
+    gather `index_select` whose backward is the scatter-add `index_add_`,
+    and `tile_kernel.rasterize_tiles` (the tile-forward / tile-backward
+    kernels). Profiles "lean" and "wide"; spans past the top tier are
+    clamped and reported as `overflow`, with `dropped` = -1.
 
 The screen-space densification gradient is reproduced functionally: pass a
 zero [2, N] tensor with requires_grad as `means2d_offset`; its gradient is
@@ -18,32 +26,99 @@ the offset divided by 0.5*[W, H] where this multiplies, so its statistic is
 (0.5*[W, H])^2 smaller (ROADMAP, faults found in the reference).
 
 Sort bands come from a `(profile, bands)` fragment profile (the trainers'
-pollers and the evaluator choose them) or from `sort_bands`, which wins.
+pollers and the evaluator choose them) or from `sort_bands`, which wins;
+`RODYGS_SORT_BANDS` forces a count for the whole process. The count is
+clamped to [1, tiles_y] (the JAX package raises on 0).
 
-Not ported yet (ROADMAP queue 1 items 11 and 12): the legacy
-`binning_mode`, tile / gauss sharding axes, the bf16 payload, the
-`fwd_records` / `bwd_unsort` variants and the `RODYGS_*` environment knobs.
+Process-level knobs, read once at import as the JAX module reads them:
+RODYGS_BWD_UNSORT (sort | gather), RODYGS_BF16_RECORDS (1 = bf16 payload
+by default; `bf16_records=` overrides per call), RODYGS_FWD_RECORDS (sort |
+gather), RODYGS_TIGHT_RECT (auto | 0 | 1 | rows; anything else raises) and
+RODYGS_SORT_BANDS (auto | an integer).
+
+Not ported yet (ROADMAP queue 1 item 4): the `tile_axis` / `gauss_axis`
+sharding axes.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
 
 from ..utils.platform import strict_fp32
-from .binning import tile_grid
+from .binning import CHUNK, DUMMY_COLS, bin_splats, tile_grid
 from .camera import Camera
 from .compact import (build_binning, build_table, composite_compact,
                       fragment_capacity, padded_width, split_profile)
-from .preprocess import preprocess
-from .tile_kernel import tiles_to_image
+from .preprocess import Splats2D, preprocess
+from .tile_kernel import rasterize_tiles, tiles_to_image
 
-# the adaptive tight-rect default of the JAX package: per-tile-row spans
-# when the tile grid is large (any 1080p render), the alpha-AABB below
+# backward unsort of the compact path (composite_compact): "sort" or "gather"
+_BWD_UNSORT = os.environ.get("RODYGS_BWD_UNSORT", "sort")
+# the bf16 fragment payload by default (compact.pack_bf16_payload)
+_BF16_RECORDS = os.environ.get("RODYGS_BF16_RECORDS", "0") == "1"
+# how record rows reach sorted order (composite_compact): "sort" or "gather"
+_FWD_RECORDS = os.environ.get("RODYGS_FWD_RECORDS", "sort")
+# tight fragment rects: "auto" (rows when the tile grid is large, else the
+# alpha-AABB), "0" (the reference's circle rects), "1" (alpha-AABB), "rows"
+_TIGHT_ENV = os.environ.get("RODYGS_TIGHT_RECT", "auto")
+if _TIGHT_ENV not in ("0", "1", "rows", "auto"):
+    raise ValueError(
+        f"RODYGS_TIGHT_RECT={_TIGHT_ENV!r}: expected '0', '1', 'rows', or "
+        "'auto' (a typo here would silently mis-label an A/B measurement)")
 _ROWS_AUTO_TILES = 4096
+# sort bands for the whole process: "auto" defers to the profile and
+# sort_bands, an integer forces the count
+_BANDS_ENV = os.environ.get("RODYGS_SORT_BANDS", "auto")
+if _BANDS_ENV != "auto" and not _BANDS_ENV.isdigit():
+    raise ValueError(
+        f"RODYGS_SORT_BANDS={_BANDS_ENV!r}: expected 'auto' or an integer")
 
 
 def _default_tight(num_tiles: int):
-    return "rows" if num_tiles >= _ROWS_AUTO_TILES else True
+    if _TIGHT_ENV == "auto":
+        return "rows" if num_tiles >= _ROWS_AUTO_TILES else True
+    return "rows" if _TIGHT_ENV == "rows" else (_TIGHT_ENV != "0")
+
+
+def _band_count(fragment_profile, sort_bands, tiles_y: int) -> int:
+    """The forced count, else sort_bands, else the profile's; in [1,
+    tiles_y]."""
+    if _BANDS_ENV != "auto":
+        bands = int(_BANDS_ENV)
+    elif sort_bands is not None:
+        bands = sort_bands
+    else:
+        bands = split_profile(fragment_profile)[1]
+    return max(1, min(bands, tiles_y))
+
+
+def default_fragment_budget(image_width: int, image_height: int, n: int) -> int:
+    """Static fragment capacity: a generous multiple of (tiles + gaussians),
+    CHUNK-rounded with a floor for tiny scenes."""
+    tiles_x, tiles_y = tile_grid(image_width, image_height)
+    budget = max(32 * n, 8 * tiles_x * tiles_y * CHUNK // 16)
+    budget = max(budget, 1 << 16)
+    return -(-budget // CHUNK) * CHUNK
+
+
+def _pack_records(splats: Splats2D) -> torch.Tensor:
+    """Field-major [16, N + DUMMY_COLS] record matrix of the legacy path:
+    the trailing all-zero columns serve the dummy fragment ids."""
+    n = splats.mean2d.shape[1]
+    ones = splats.mean2d.new_ones((1, n))
+    rec = torch.cat([
+        splats.mean2d,                    # rows 0:2
+        splats.conic,                     # rows 2:5
+        splats.opacity[None, :],          # row 5
+        splats.rgb,                       # rows 6:9
+        splats.depth[None, :],            # row 9
+        splats.normal,                    # rows 10:13
+        ones,                             # row 13 (the alpha feature)
+        splats.mean2d.new_zeros((2, n)),  # rows 14:16 pad
+    ], dim=0)
+    return torch.cat([rec, rec.new_zeros((16, DUMMY_COLS))], dim=1)
 
 
 def render(
@@ -61,8 +136,11 @@ def render(
     alive: torch.Tensor | None = None,
     means2d_offset: torch.Tensor | None = None,
     colors_precomp: torch.Tensor | None = None,
+    max_fragments: int | None = None,
     fragment_profile: str | int = "lean",
+    binning_mode: str = "compact",
     include_normal: bool = True,
+    bf16_records: bool | None = None,
     tight_rect: bool | str | None = None,
     pose_grad_only: bool = False,
     sort_bands: int | None = None,
@@ -71,12 +149,19 @@ def render(
 
     means3d [N,3], shs [N,K,3], activated opacity [N] / scaling [N,3], raw
     quaternion rotation [N,4]. `fragment_profile` sets the fragment
-    capacity (compact.fragment_capacity) and, as a (profile, bands) tuple,
-    the sort bands; `sort_bands` overrides the profile's band count;
-    `tight_rect` overrides the adaptive binning default.
+    capacity (compact.fragment_capacity; legacy: binning.FRAGMENT_PROFILES)
+    and, as a (profile, bands) tuple, the sort bands; `sort_bands`
+    overrides the profile's band count; `tight_rect` overrides the binning
+    default; `bf16_records` the process's bf16 payload default.
+    `max_fragments` is accepted and not used, as in the JAX package: both
+    binnings size their capacity from N and the profile. The compact-path
+    options do not apply to the legacy path.
     """
     if means3d.is_cuda:
         strict_fp32()
+    if max_fragments is None:
+        max_fragments = default_fragment_budget(
+            image_width, image_height, means3d.shape[0])
     tiles_x, tiles_y = tile_grid(image_width, image_height)
     splats = preprocess(
         means3d, scaling, rotation, opacity, shs, sh_degree, camera,
@@ -88,43 +173,60 @@ def render(
         splats = splats._replace(mean2d=splats.mean2d + means2d_offset * scale)
 
     num_tiles = tiles_x * tiles_y
-    n = splats.mean2d.shape[1]
-    capacity = fragment_capacity(n, fragment_profile)
-    tight = _default_tight(num_tiles) if tight_rect is None else tight_rect
-    _, bands = split_profile(fragment_profile)
-    if sort_bands is not None:
-        bands = sort_bands
-    bands = max(1, min(bands, tiles_y))
-    cb = build_binning(splats, tiles_x, tiles_y, capacity, tight=tight,
-                       bands=bands)
-    nw = padded_width(n)
-    rec13 = torch.cat([
-        splats.mean2d,                 # rows 0:2
-        splats.conic,                  # rows 2:5
-        splats.opacity[None, :],       # row 5
-        splats.rgb,                    # rows 6:9
-        splats.depth[None, :],         # row 9
-        splats.normal,                 # rows 10:13
-    ], dim=0)
-    rec13 = torch.nn.functional.pad(rec13, (0, nw - n))
-    if bands > 1:
-        # the bands share the record rows: autograd of the stack sums the
-        # bands' [B, R, Nw] table cotangent into them
-        table = torch.stack([build_table(rec13, cb.aux_rows[b])
-                             for b in range(bands)])
+    if binning_mode == "compact":
+        n = splats.mean2d.shape[1]
+        capacity = fragment_capacity(n, fragment_profile)
+        tight = _default_tight(num_tiles) if tight_rect is None else tight_rect
+        bands = _band_count(fragment_profile, sort_bands, tiles_y)
+        cb = build_binning(splats, tiles_x, tiles_y, capacity, tight=tight,
+                           bands=bands)
+        nw = padded_width(n)
+        rec13 = torch.cat([
+            splats.mean2d,                 # rows 0:2
+            splats.conic,                  # rows 2:5
+            splats.opacity[None, :],       # row 5
+            splats.rgb,                    # rows 6:9
+            splats.depth[None, :],         # row 9
+            splats.normal,                 # rows 10:13
+        ], dim=0)
+        rec13 = torch.nn.functional.pad(rec13, (0, nw - n))
+        if bands > 1:
+            # the bands share the record rows: autograd of the stack sums the
+            # bands' [B, R, Nw] table cotangent into them
+            table = torch.stack([build_table(rec13, cb.aux_rows[b])
+                                 for b in range(bands)])
+        else:
+            table = build_table(rec13, cb.aux_rows)
+        bf16 = _BF16_RECORDS if bf16_records is None else bf16_records
+        tile_out = composite_compact(
+            table, cb.bases, cb.f_kept, cb.tile_starts, cb.tile_counts,
+            torch.zeros((1,), dtype=torch.int32, device=means3d.device),
+            tiles_x, tiles_y, include_normal, _BWD_UNSORT, bf16,
+            _FWD_RECORDS, bands)
+        num_fragments, overflow, dropped = (cb.num_fragments, cb.overflow,
+                                            cb.dropped)
+    elif binning_mode == "legacy":
+        binning = bin_splats(
+            splats.mean2d.detach(), splats.depth.detach(), splats.radius,
+            splats.visible, tiles_x, tiles_y, max_fragments,
+            profile=fragment_profile)
+        # the gather's backward is the scatter-add index_add_
+        padded = _pack_records(splats).index_select(1, binning.padded_gid)
+        tile_out = rasterize_tiles(padded, binning.tile_starts,
+                                   binning.tile_counts, tiles_x)
+        num_fragments, overflow = binning.num_fragments, binning.overflow
+        # spans are clamped, not whole gaussians dropped: no exact count
+        dropped = torch.where(overflow, -1, 0).to(torch.int32)
     else:
-        table = build_table(rec13, cb.aux_rows)
-    tile_out = composite_compact(
-        table, cb.bases, cb.f_kept, cb.tile_starts, cb.tile_counts,
-        torch.zeros((1,), dtype=torch.int32, device=means3d.device),
-        tiles_x, tiles_y, include_normal)
+        raise ValueError(f"binning_mode {binning_mode!r}: expected 'compact' "
+                         "or 'legacy'")
     img = tiles_to_image(tile_out, tiles_x, tiles_y, image_width, image_height)
 
     rgb = img[:, :, 0:3]
     depth = img[:, :, 3]
     normal = img[:, :, 4:7]
     if not include_normal:
-        # the normal rows never entered the sort: a structurally-zero plane
+        # no normal plane is exposed: a structurally-zero one, no cotangent
         normal = torch.zeros_like(normal).detach()
     alpha = img[:, :, 7]
     if bg is not None:
@@ -137,7 +239,7 @@ def render(
         "rendered_alpha": alpha,
         "radii": splats.radius,
         "visibility_filter": splats.radius > 0,
-        "num_fragments": cb.num_fragments,
-        "overflow": cb.overflow,
-        "dropped": cb.dropped,
+        "num_fragments": num_fragments,
+        "overflow": overflow,
+        "dropped": dropped,
     }

@@ -1,6 +1,7 @@
 """Tile compositing, forward and analytic backward. Port of
 `rodygs_tpu/render/tile_kernel.py` (`rasterize_fwd_impl`,
-`rasterize_bwd_impl`, `tiles_to_image`).
+`rasterize_bwd_impl`, the legacy path's differentiable `rasterize_tiles` /
+`rasterize_tiles_ranged`, `tiles_to_image`).
 
 Record rows (f32, field-major [16, P]):
   0:mx 1:my 2:conic_a 3:conic_b 4:conic_c 5:opacity
@@ -292,6 +293,52 @@ def rasterize_bwd_impl(records, tile_starts, tile_counts, tile_id_offset,
                    tile_counts, tile_id_offset, tile_starts.shape[0], tiles_x,
                    int(include_normal), out, gout, d_records)
     return d_records
+
+
+class _RasterizeTiles(torch.autograd.Function):
+    """The legacy path's compositor: forward `rasterize_fwd_impl`, backward
+    `rasterize_bwd_impl` from the saved planes, all 8 channels live."""
+
+    @staticmethod
+    def forward(ctx, records, tile_starts, tile_counts, tile_id_offset,
+                tiles_x):
+        records = records.contiguous()
+        out = rasterize_fwd_impl(records, tile_starts, tile_counts,
+                                 tile_id_offset, tiles_x)
+        ctx.save_for_backward(records, tile_starts, tile_counts,
+                              tile_id_offset, out)
+        ctx.tiles_x = tiles_x
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        records, tile_starts, tile_counts, tile_id_offset, out = \
+            ctx.saved_tensors
+        d_records = rasterize_bwd_impl(records, tile_starts, tile_counts,
+                                       tile_id_offset, out, gout.contiguous(),
+                                       ctx.tiles_x)
+        return d_records, None, None, None, None
+
+
+def rasterize_tiles_ranged(padded_records, tile_starts, tile_counts,
+                           tile_id_offset, tiles_x: int) -> torch.Tensor:
+    """`rasterize_tiles` with the [1] i32 global id of the first tile."""
+    return _RasterizeTiles.apply(padded_records, tile_starts, tile_counts,
+                                 tile_id_offset, tiles_x)
+
+
+def rasterize_tiles(padded_records, tile_starts, tile_counts,
+                    tiles_x: int) -> torch.Tensor:
+    """Composite sorted fragment records into per-tile channel planes,
+    differentiably in the records.
+
+    padded_records [16, P] f32 field-major, depth-sorted (any P: the kernels
+    read only the tile ranges); tile_starts / tile_counts [T] i32 unaligned
+    ranges into it (binning.TileBinning). Returns [T, 8, 256] f32 planes."""
+    return rasterize_tiles_ranged(
+        padded_records, tile_starts, tile_counts,
+        torch.zeros((1,), dtype=torch.int32, device=padded_records.device),
+        tiles_x)
 
 
 def tiles_to_image(tile_out: torch.Tensor, tiles_x: int, tiles_y: int,

@@ -1,6 +1,7 @@
 """Functional Adam over trees of tensors, and the camera pose optimizer's
 state and learning rates. Port of `rodygs_tpu/train/optim.py` (`AdamState`,
-`adam_init`, `adam_update`, `CameraPoses`, `camera_lr_tree`).
+`adam_init`, `adam_update`, `sparse_row_adam_init`,
+`sparse_row_adam_update`, `CameraPoses`, `camera_lr_tree`).
 
 A tree is a tensor, a NamedTuple or a dict of trees: `GaussianParams`,
 `CameraPoses`, and the dynamic model's nested `DynParams` (Gaussian params,
@@ -23,7 +24,7 @@ import torch
 class AdamState(NamedTuple):
     mu: Any              # first moments (same NamedTuple type as params)
     nu: Any              # second moments
-    count: torch.Tensor  # [] int32 step counter
+    count: torch.Tensor  # [] int32 step counter ([F] for the row-sparse Adam)
 
 
 def tree_map(fn, tree, *rest):
@@ -83,6 +84,59 @@ def adam_update(grads: Any, state: AdamState, params: Any, lr: Any,
         mu = tree_map(sel, mu, state.mu)
         nu = tree_map(sel, nu, state.nu)
         count = sel(count, state.count)
+    return new_params, AdamState(mu=mu, nu=nu, count=count)
+
+
+def sparse_row_adam_init(params: Any, n_rows: int) -> AdamState:
+    """State of `sparse_row_adam_update`: zero moments and a [n_rows] int32
+    step count."""
+    return AdamState(mu=tree_map(torch.zeros_like, params),
+                     nu=tree_map(torch.zeros_like, params),
+                     count=torch.zeros((n_rows,), dtype=torch.int32,
+                                       device=tree_leaves(params)[0].device))
+
+
+@torch.no_grad()
+def sparse_row_adam_update(grads: Any, state: AdamState, params: Any, lr: Any,
+                           row_mask: torch.Tensor, b1: float = 0.9,
+                           b2: float = 0.999, eps: float = 1e-15
+                           ) -> tuple[Any, AdamState]:
+    """Adam over a stack of per-row parameters ([F, ...] leaves) where only
+    the `row_mask` rows received gradients this step: the moments, step
+    counts and parameters of the other rows stay frozen instead of decaying.
+
+    The camera poses of all F frames share one Adam and train one frame per
+    iteration; with the rows masked, round-robin sampling is exactly an
+    independent Adam per camera (no reference counterpart; the JAX package's
+    `camera_sparse_adam`). `state.count` is [F] int32
+    (`sparse_row_adam_init`)."""
+    mask = row_mask.to(torch.bool)
+    count = state.count + mask.to(torch.int32)               # [F]
+    t = count.to(torch.float32)
+    c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
+                                      device=t.device), t)
+    c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
+                                      device=t.device), t)
+
+    def rows(x, like):   # [F] against [F, D...]
+        return x.reshape(x.shape + (1,) * (like.dim() - 1))
+
+    mu = tree_map(lambda m, g: torch.where(rows(mask, m),
+                                           b1 * m + (1 - b1) * g, m),
+                  state.mu, grads)
+    nu = tree_map(lambda v, g: torch.where(rows(mask, v),
+                                           b2 * v + (1 - b2) * g * g, v),
+                  state.nu, grads)
+    if not isinstance(lr, (tuple, dict)):
+        lr = tree_map(lambda _, x=lr: x, params)
+
+    def step(p, m, v, lr_p):
+        # unvisited rows have c1 == 0; the where() discards their lanes
+        upd = p - lr_p * (m / torch.clamp(rows(c1, p), min=1e-30)) / (
+            torch.sqrt(v / torch.clamp(rows(c2, p), min=1e-30)) + eps)
+        return torch.where(rows(mask, p), upd, p)
+
+    new_params = tree_map(step, params, mu, nu, lr)
     return new_params, AdamState(mu=mu, nu=nu, count=count)
 
 

@@ -95,7 +95,8 @@ class RoDyGSTrainer:
                                    batch),
             sh_degree, cfg.image_width, cfg.image_height,
             alive=torch.cat([static_store.alive, d_alive]),
-            means2d_offset=offset, fragment_profile=fragment_profile,
+            means2d_offset=offset, max_fragments=cfg.max_fragments,
+            fragment_profile=fragment_profile,
             include_normal=dyn.loss.uses_normal)
         ctx = {
             "pred_img": out["rendered_image"],

@@ -6,8 +6,9 @@ ramp, `state_dict`).
 One iteration: pose-differentiable render through the compact path, the
 MultiLoss, gradients over the Gaussian params, the camera poses and the
 `means2d` offset (densification statistic), Adam (eps 1e-15) for the
-Gaussians with the exponential xyz schedule, Adam for the poses, and the
-densify-stat accumulation; then densification and the opacity reset on
+Gaussians with the exponential xyz schedule, Adam for the poses (with
+`camera_sparse_adam`, a row-masked Adam that steps only the batch frame's
+pose row), and the densify-stat accumulation; then densification and the opacity reset on
 their schedules. PyTorch runs eagerly, so there is no step variant to
 compile: a fragment-capacity change just allocates at the new size on the
 next render.
@@ -35,7 +36,9 @@ from ..utils.platform import resolve_device
 from .densify import (DensifyStats, accumulate_stats, densify_and_prune,
                       init_stats, reset_opacity)
 from .losses import MultiLoss
-from .optim import AdamState, CameraPoses, adam_init, adam_update, camera_lr_tree
+from .optim import (AdamState, CameraPoses, adam_init, adam_update,
+                    camera_lr_tree, sparse_row_adam_init,
+                    sparse_row_adam_update)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,14 +95,17 @@ class StaticTrainState(NamedTuple):
     cam_opt: AdamState
 
 
-def init_static_state(store: G.GaussianStore,
-                      poses: CameraPoses) -> StaticTrainState:
+def init_static_state(store: G.GaussianStore, poses: CameraPoses,
+                      camera_sparse_adam: bool = False) -> StaticTrainState:
+    """The state before step 1; `camera_sparse_adam` gives the camera Adam
+    a [F] step count (optim.sparse_row_adam_init)."""
     return StaticTrainState(
         store=store,
         opt=adam_init(store.params),
         stats=init_stats(G.capacity_of(store), device=store.alive.device),
         poses=poses,
-        cam_opt=adam_init(poses),
+        cam_opt=(sparse_row_adam_init(poses, poses.q_c2w.shape[0])
+                 if camera_sparse_adam else adam_init(poses)),
     )
 
 
@@ -239,9 +245,6 @@ class ThreeDGSTrainer:
     def __init__(self, cfg: StaticTrainerConfig, loss: MultiLoss,
                  store: G.GaussianStore, poses: CameraPoses,
                  spatial_lr_scale: float, device=None, seed: int = 0):
-        if cfg.camera_sparse_adam:
-            raise NotImplementedError(
-                "camera_sparse_adam is not ported yet (ROADMAP queue 1 item 3)")
         self.device = resolve_device(device)
         self.cfg = cfg
         self.loss = loss
@@ -251,7 +254,8 @@ class ThreeDGSTrainer:
                                alive=store.alive.to(self.device),
                                time=store.time.to(self.device),
                                time_ind=store.time_ind.to(self.device))
-        self.state = init_static_state(store, move(poses))
+        self.state = init_static_state(store, move(poses),
+                                       cfg.camera_sparse_adam)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
         self.active_sh_degree = 0
         self.fragment_profile: str | int = "lean"
@@ -268,6 +272,7 @@ class ThreeDGSTrainer:
             G.get_scaling(params, cfg.isotropic), params.rotation, camera,
             sh_degree, cfg.image_width, cfg.image_height,
             alive=alive, means2d_offset=offset,
+            max_fragments=cfg.max_fragments,
             fragment_profile=fragment_profile,
             include_normal=self.loss.uses_normal)
         return out, camera
@@ -325,8 +330,16 @@ class ThreeDGSTrainer:
         cam_lrs = camera_lr_tree(
             iteration, cfg.camera_rotation_lr, cfg.camera_translation_lr,
             cfg.camera_lr_warmup, cfg.camera_total_steps)
-        new_poses, new_cam_opt = adam_update(
-            g_poses, state.cam_opt, state.poses, cam_lrs)
+        if cfg.camera_sparse_adam:
+            # only this batch's pose row advances: round-robin frames then
+            # step like an independent Adam per camera
+            n_f = state.poses.q_c2w.shape[0]
+            row_mask = torch.arange(n_f, device=self.device) == batch.frame_idx
+            new_poses, new_cam_opt = sparse_row_adam_update(
+                g_poses, state.cam_opt, state.poses, cam_lrs, row_mask)
+        else:
+            new_poses, new_cam_opt = adam_update(
+                g_poses, state.cam_opt, state.poses, cam_lrs)
         new_stats = accumulate_stats(
             state.stats, g_offset, aux["radii"].to(torch.float32),
             aux["visible"])

@@ -12,11 +12,11 @@ functions that hold its draws (`densify.split_noise`, `losses.box_origins`,
 `losses.rigidity_permutation`, `losses.rigidity_times`).
 
 The motion net's time features: with t_emb_multires frequencies up to
-2^(M-1)*pi, t*f reaches 2^25*pi at the shipped M = 26 and the features past
-~2^15*pi depend on the sin/cos implementation. Parity is taken at M <= 15
-(the basis at atol 1e-5; the embedding's columns up to 2^6*pi, because the
-two linspaces differ by an ulp in some frequencies); at M = 26 only
-boundedness and finite gradients are checked.
+2^(M-1)*pi, t*f reaches 2^25*pi at the shipped M = 26, where the float32
+rounding of the argument decides the feature; the port builds the
+frequency table with XLA's bits (models/motion.xla_linspace), so parity is
+taken up to M = 26 (every embedding column and the basis at atol 1e-5),
+the JAX side jitted as its trainers run it.
 """
 
 import copy
@@ -251,7 +251,8 @@ def _net(cfg, seed):
     return params, convert.net_from_numpy(params, "cpu")
 
 
-@pytest.mark.parametrize("multires,log_s", [(6, False), (15, False), (10, True)])
+@pytest.mark.parametrize("multires,log_s", [(6, False), (15, False),
+                                            (26, False), (10, True)])
 def test_motion_model_matches(multires, log_s):
     cfg = JM.MotionNetConfig(netwidth=32, num_basis=4, t_emb_multires=multires,
                              t_log_sampling=log_s)
@@ -264,12 +265,10 @@ def test_motion_model_matches(multires, log_s):
                                      jnp.float32)
         tp["heads"][k] = T(jp["heads"][k])
     times = np.array([0.0, 0.13, 0.5, 0.97], np.float32)
-    low = 1 + 2 * int(np.sum(np.linspace(1, 2.0 ** (multires - 1), multires)
-                             <= 2.0 ** 6)) if not log_s else 1 + 2 * 7
     np.testing.assert_allclose(
-        TM.embed_time(T(times), multires, log_s).numpy()[:, :low],
-        np.asarray(JM.embed_time(jnp.asarray(times), multires, log_s))[:, :low],
-        atol=1e-5)
+        TM.embed_time(T(times), multires, log_s).numpy(),
+        np.asarray(jax.jit(JM.embed_time, static_argnums=(1, 2))(
+            jnp.asarray(times), multires, log_s)), atol=1e-5)
     np.testing.assert_allclose(
         TM.motion_table(tp, tcfg, T(times)).numpy(),
         np.asarray(jax.jit(JM.motion_table, static_argnums=1)(
@@ -289,8 +288,8 @@ def test_motion_model_matches(multires, log_s):
 
 
 def test_motion_model_shipped_width_bounded():
-    """At the shipped 26 frequencies only boundedness and finite gradients
-    are implementation-independent."""
+    """At the shipped 26 frequencies: bounded features and finite
+    gradients."""
     cfg = TM.MotionNetConfig()
     net = TM.init_motion_params(0, cfg, device="cpu")
     times = torch.linspace(0, 1, 9)
