@@ -151,11 +151,45 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
                the concatenated render of frame 0 of the restored end
                state. Prints the data-load seconds, the StepTimer's p50,
                each CLI's wall seconds and launches.
-  9. report  — the card's name and power limit (nvidia-smi), one JSON line
+  9. multi   — multi-device training on the one card (no multi-GPU
+               speed is measured). (a) The trained 512x512 state of phase 3:
+               its compact render (expand, sort, tile forward; tile
+               backward, unsort, segsum) split into 2, 3 and 8 tile blocks
+               at their global tile offsets, the planes concatenated
+               bit-identical to the whole grid's, the blocks' table
+               gradients summed within 1e-5 of the whole grid's maximum.
+               (b) The sharded static step over one NCCL rank (world size
+               1) against the trainer's step: params, poses and moments
+               bit-identical. (c) A world of 4 processes on the card over
+               Gloo (parallel/dryrun.run_world): meshes 2x1x2 and 1x2x2 of
+               the sharded static step at the bench workload (512x512,
+               100,000 gaussians in 131,072 slots; the 1x2x2 store
+               interleaved over 2 gauss blocks), the first step's
+               gradients within 5e-4 of their max and its loss within
+               1e-5 relative of one process's mean-frame gradients and
+               loss on the same global store, 20 steps each with a falling
+               loss equal on every rank, one sharded densification, the
+               Gloo all-reduce of the parameter gradients over the data
+               axis timed; then on 1x2x2 the sharded joint iteration at the
+               kubric size (100k static, 24k dynamic) for iterations
+               598-600 (both stores densify at 600), finite and moving;
+               each rank counts its kernel launches, and rank 0 holds the
+               four kernels against their plain versions on its share of
+               the render (the tile kernels on its block at its offset,
+               every fragment outside it at zero gradient). (d) The train
+               CLI under `torch.distributed.run --standalone
+               --nproc_per_node 2` with RODYGS_DIST_BACKEND=gloo and
+               `--mesh data=2` on phase 8's scene: 100 iterations with a
+               snapshot every 50, then `--resume` to 150; train.log and
+               train.p1.log, one writer's files, and the single-process
+               port loads resume.ckpt.
+ 10. report  — the card's name and power limit (nvidia-smi), one JSON line
                of per-kernel numbers (`launches_joint`: launches in phase 6;
                `launches_eval`: inside the two eval() calls of phase 7;
                `launches_bands`: in its three banded renders;
-               `launches_cli`: in each CLI of phase 8), and last
+               `launches_cli`: in each CLI of phase 8; `launches_multi`:
+               each rank's launches in phase 9c; `launches_torchrun`: each
+               rank's in phase 9d's first run), and last
                {"ok": true, "device": ...}. The tile kernels' rows carry
                `launches_legacy` (one legacy render of phase 5a),
                `launches_variants` (its four variant renders) and
@@ -668,8 +702,9 @@ def phase_1080p(device, n=240_000, width=1920, height=1080):
 
 
 def bench_trainer(device, size=512, N=100_000, capacity=131072,
-                  camera_sparse_adam=False):
-    """bench.py's 512^2 / 100k workload, built through the port."""
+                  camera_sparse_adam=False, mesh=None):
+    """bench.py's 512^2 / 100k workload, built through the port (on `mesh`:
+    this rank's trainer of the sharded step)."""
     import torch
     from rodygs_tpu_torch.models import gaussians as G
     from rodygs_tpu_torch.render.camera import make_camera
@@ -704,7 +739,7 @@ def bench_trainer(device, size=512, N=100_000, capacity=131072,
         camera_rotation_lr=1e-5, camera_translation_lr=1e-6,
         camera_sparse_adam=camera_sparse_adam)
     trainer = ThreeDGSTrainer(cfg, loss, store, poses, spatial_lr_scale=4.0,
-                              device=device)
+                              device=device, mesh=mesh)
     gt_rng = np.random.default_rng(11)
     gts = []
     p = store.params
@@ -1288,7 +1323,8 @@ JOINT_REDUCED = ("image 512x512 (kubric frames are larger)",
 
 
 def joint_trainer(device, size=512, n_static=100_000, cap_static=131072,
-                  n_dyn=24_000, cap_dyn=32768, n_objects=6, n_frames=8):
+                  n_dyn=24_000, cap_dyn=32768, n_objects=6, n_frames=8,
+                  mesh=None):
     """The joint scene: the bench static set (its GT too), and n_dyn
     dynamic gaussians in n_objects blobs born at t = 0, each blob moving
     with a seeded velocity. GT images and depths are rendered by the port
@@ -1384,10 +1420,10 @@ def joint_trainer(device, size=512, n_static=100_000, cap_static=131072,
     d_cfg = DynTrainerConfig(image_width=W, image_height=H, **KUBRIC_DYNAMIC)
     st = ThreeDGSTrainer(s_cfg, MultiLoss.from_config(KUBRIC_STATIC_LOSSES),
                          static, poses, spatial_lr_scale=4.0, device=device,
-                         seed=1)
+                         seed=1, mesh=mesh)
     dt = DynTrainer(d_cfg, MultiLoss.from_config(KUBRIC_DYNAMIC_LOSSES), dyn,
-                    spatial_lr_scale=4.0, seed=2, device=device)
-    joint = RoDyGSTrainer(st, dt, **KUBRIC_JOINT)
+                    spatial_lr_scale=4.0, seed=2, device=device, mesh=mesh)
+    joint = RoDyGSTrainer(st, dt, mesh=mesh, **KUBRIC_JOINT)
     gt_poses = CameraPoses(*[x.clone() for x in poses])
     return joint, (lambda i: frames[i % n_frames]), (W, H), (gt_render,
                                                             gt_poses)
@@ -2097,6 +2133,31 @@ def time_embedding_columns(device, frames=CLI_FRAMES, multires=CLI_MULTIRES):
     return out
 
 
+def write_cli_scene(root, device, tag):
+    """The kubric-shaped scene of the CLI phases under root/scene; returns
+    its path."""
+    import shutil
+    from rodygs_tpu_torch.data import synthetic
+
+    t0 = time.perf_counter()
+    test_times = [(i + 0.5) / (CLI_FRAMES - 1) for i in CLI_TEST_AFTER]
+    scene = synthetic.make_scene_views(
+        CLI_STATIC, CLI_DYNAMIC, CLI_FRAMES, CLI_SIZE, CLI_SIZE,
+        test_times=test_times, device=device)
+    data = synthetic.write_scene(root / "scene", scene, CLI_SIZE, CLI_SIZE,
+                                 pose_noise_rot_deg=0.3, pose_noise_trans=0.01)
+    del scene
+    # the train config's MASt3R experiment; the eval configs' test readers
+    # read exp0's global_params.pkl
+    shutil.copytree(data / "mast3r_opt" / "exp0",
+                    data / "mast3r_opt" / "swin_noloop_000")
+    log(f"[{tag}] scene written in {time.perf_counter() - t0:.2f} s: "
+        f"{CLI_SIZE}x{CLI_SIZE}, {CLI_FRAMES} train frames, test times "
+        f"{[round(x, 4) for x in test_times]}, plys of {CLI_STATIC} "
+        f"static and {CLI_DYNAMIC} dynamic points a frame")
+    return data
+
+
 def phase_cli(device):
     """The train CLI and both eval CLIs, as subprocesses, on a scene that
     `data/synthetic.py` writes at the kubric shape (phase 8); the kernels
@@ -2106,7 +2167,6 @@ def phase_cli(device):
     import tempfile
     import torch
     import yaml
-    from rodygs_tpu_torch.data import synthetic
     from rodygs_tpu_torch.models import gaussians as G
     from rodygs_tpu_torch.pipelines.build import (build_training_run,
                                                   make_frame_batch)
@@ -2126,23 +2186,7 @@ def phase_cli(device):
     root = Path(tempfile.mkdtemp(prefix="rodygs_cli_"))
     launches = {}
     try:
-        t0 = time.perf_counter()
-        test_times = [(i + 0.5) / (CLI_FRAMES - 1) for i in CLI_TEST_AFTER]
-        scene = synthetic.make_scene_views(
-            CLI_STATIC, CLI_DYNAMIC, CLI_FRAMES, CLI_SIZE, CLI_SIZE,
-            test_times=test_times, device=device)
-        data = synthetic.write_scene(root / "scene", scene, CLI_SIZE,
-                                     CLI_SIZE, pose_noise_rot_deg=0.3,
-                                     pose_noise_trans=0.01)
-        del scene
-        # the train config's MASt3R experiment; the eval configs' test
-        # readers read exp0's global_params.pkl
-        shutil.copytree(data / "mast3r_opt" / "exp0",
-                        data / "mast3r_opt" / "swin_noloop_000")
-        log(f"[cli] scene written in {time.perf_counter() - t0:.2f} s: "
-            f"{CLI_SIZE}x{CLI_SIZE}, {CLI_FRAMES} train frames, test times "
-            f"{[round(x, 4) for x in test_times]}, plys of {CLI_STATIC} "
-            f"static and {CLI_DYNAMIC} dynamic points a frame")
+        data = write_cli_scene(root, device, "cli")
 
         out, secs = _cli(
             ["rodygs_tpu_torch.pipelines.train", "-d", data, "-b",
@@ -2247,6 +2291,368 @@ def phase_cli(device):
     return launches, errs
 
 
+# --------------------------------------------------------------------------
+# phase 9: multi-device training, on one card
+# --------------------------------------------------------------------------
+
+MULTI_SPLITS = (2, 3, 8)
+MULTI_MESHES = ({"data": 2, "gauss": 1, "tile": 2},
+                {"data": 1, "gauss": 2, "tile": 2})
+MULTI_STEPS = 20
+MULTI_JOINT_ITERATIONS = (598, 600)     # both models densify at 600
+MULTI_CLI = (100, 50, 150)              # iterations, snapshot, resume to
+MULTI_TIMEOUT = 600.0
+MULTI_REDUCED = ("four ranks share one H100 over Gloo: correctness of the "
+                 "sharded path, not a multi-GPU speed",)
+
+
+def _mesh_tag(shape):
+    return "x".join(str(shape[a]) for a in ("data", "gauss", "tile"))
+
+
+def _scaled_err(ref, got):
+    return float((got - ref).abs().max()) / (float(ref.abs().max()) + 1e-30)
+
+
+def multi_rank(rank, meshes, steps, joint_its, device="cuda", bench_kw=None,
+               joint_kw=None):
+    """One rank of the 4-rank world (phase 9c), on the card unless `device`
+    is "cpu" (with `bench_kw` / `joint_kw` cutting the scenes: a rehearsal
+    on the CPU). For each mesh: the bench
+    trainer on the mesh, the first sharded step's gradients (rank 0 holds
+    them against one process's mean-frame gradients on the same global
+    store), `steps` sharded steps, one sharded densification; on the last
+    mesh the sharded joint iteration at the kubric size, and rank 0 holds
+    the four kernels against their plain versions on its render's share.
+    Every rank counts its own kernel launches."""
+    import torch
+    from rodygs_tpu_torch import kernel_check as KC
+    from rodygs_tpu_torch import kernels
+    from rodygs_tpu_torch.models import gaussians as G
+    from rodygs_tpu_torch.parallel import collectives as PC
+    from rodygs_tpu_torch.parallel.mesh import make_mesh
+    from rodygs_tpu_torch.parallel.sharded import composite_axes, stack_batches
+    from rodygs_tpu_torch.render.rasterize import _default_tight
+    from rodygs_tpu_torch.train.trainer_static import make_camera_from_poses
+
+    out = {"rank": rank, "meshes": {}}
+    launches = {k: 0 for k in kernels.KERNELS}
+    on_card = device == "cuda"
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    bench_kw, joint_kw = bench_kw or {}, joint_kw or {}
+
+    def count(fn):
+        kernels.reset_launches()
+        r = fn()
+        sync()
+        for k, v in kernels.LAUNCHES.items():
+            launches[k] += v
+        return r
+
+    for shape in meshes:
+        tag = _mesh_tag(shape)
+        mesh = make_mesh(n_data=shape["data"], n_tile=shape["tile"],
+                         n_gauss=shape["gauss"],
+                         device=None if on_card else "cpu")
+        trainer, batch_for, (width, height) = bench_trainer(
+            mesh.device, mesh=mesh, **bench_kw)
+        n_data = shape["data"]
+
+        def batch(it):
+            return stack_batches([batch_for((it - 1) * n_data + j)
+                                  for j in range(n_data)])
+
+        active = trainer.loss.active_set(1)
+        sh, prof = trainer.active_sh_degree, trainer.fragment_profile
+        grads = count(lambda: trainer._sharded_step.grads(
+            trainer.state, batch(1), active, sh, prof))
+        gauss = mesh.axis("gauss")
+        g_params = PC.all_gather_rows(grads[1], gauss)
+        res = {"coords": mesh.coords, "loss0": float(grads[0])}
+        # Gloo's CUDA all-reduce of the parameter gradients over the data
+        # axis, as the step runs it (ranks sharing one card)
+        data = mesh.axis("data")
+        if data.size > 1:
+            times = []
+            for _ in range(5):
+                sync()
+                t0 = time.perf_counter()
+                PC.psum(grads[1], data)
+                sync()
+                times.append((time.perf_counter() - t0) * 1e3)
+            res["psum_ms"] = float(np.median(times))
+            res["psum_mb"] = sum(g.numel() for g in grads[1]) * 4 / 2**20
+        ref = None
+        if rank == 0:
+            ref, _, _ = bench_trainer(mesh.device, **bench_kw)
+            ref.state = ref.state._replace(store=G.shard_interleave(
+                ref.state.store, shape["gauss"]))
+            parts = [ref.loss_and_grads(ref.state, batch_for(j), active, sh,
+                                        prof) for j in range(n_data)]
+            loss_ref = float(np.mean([float(p[0]) for p in parts]))
+            res["loss_rel_err"] = abs(res["loss0"] - loss_ref) / loss_ref
+            res["grad_err"] = {}
+            for name, i in (("params", 0), ("poses", 1)):
+                got = g_params if i == 0 else grads[2]
+                for f, g in zip(got._fields, got):
+                    mean = sum(p[2][i]._asdict()[f] for p in parts) / n_data
+                    res["grad_err"][f"{name}.{f}"] = _scaled_err(mean, g)
+        losses, step_ms = [], []
+        for it in range(1, steps + 1):
+            sync()
+            t0 = time.perf_counter()
+            m = count(lambda: trainer.train_iteration(batch(it), it))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            losses.append(float(m["loss"]))
+        _, info = count(lambda: trainer.densify(trainer.state, None))
+        res.update(losses=losses, step_ms=step_ms,
+                   densify={k: int(v) for k, v in info._asdict().items()},
+                   alive=int(PC.psum(G.num_alive(trainer.state.store)
+                                     .reshape(1), gauss)),
+                   profile=str(trainer.fragment_profile))
+        if rank == 0 and shape is meshes[-1]:
+            comp = composite_axes(mesh)
+            cam = make_camera_from_poses(ref.state.poses, batch_for(0))
+            s = KC.capture_stages(ref.state.store.params, ref.state.store.alive,
+                                  cam, sh, width, height, prof,
+                                  _default_tight(32 * 32), 4)
+            res["kernel_errs"] = KC.check_tile_block(s, comp.size, comp.index)
+        del trainer, ref
+        if on_card:
+            torch.cuda.empty_cache()
+        out["meshes"][tag] = res
+
+    mesh = make_mesh(n_data=meshes[-1]["data"], n_tile=meshes[-1]["tile"],
+                     n_gauss=meshes[-1]["gauss"],
+                     device=None if on_card else "cpu")
+    joint, frame_for, _, _ = joint_trainer(mesh.device, mesh=mesh, **joint_kw)
+    st = joint.static
+    xyz0 = st.state.store.params.xyz.clone()
+    coeff0 = joint.dynamic.state.motion_coeff.clone()
+    n_data = mesh.shape["data"]
+    jres = {"losses": [], "densify": {}}
+    for it in range(joint_its[0], joint_its[1] + 1):
+        b = stack_batches([frame_for(it * n_data + j) for j in range(n_data)])
+        m = count(lambda: joint.train_iteration(b, b, it))
+        jres["losses"].append((float(m["static"]["loss"]),
+                               float(m["dynamic"]["loss"])))
+        for k in ("static_densify", "dynamic_densify"):
+            if k in m:
+                jres["densify"][k] = {f: int(v)
+                                      for f, v in m[k]._asdict().items()}
+    jres["moved"] = [float((st.state.store.params.xyz - xyz0).abs().max()),
+                     float((joint.dynamic.state.motion_coeff - coeff0)
+                           .abs().max())]
+    out["joint"] = jres
+    out["launches"] = launches
+    return out
+
+
+def multi_nccl_single(device, trainer, batch_for):
+    """(9b) The sharded static step at world size 1 over NCCL, against the
+    trainer's own step, from the trained state."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from rodygs_tpu_torch.parallel.mesh import make_mesh
+    from rodygs_tpu_torch.parallel.sharded import (make_sharded_static_step,
+                                                   stack_batches)
+
+    tmp = tempfile.mkdtemp(prefix="rodygs_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/init",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(device=device)
+        step = make_sharded_static_step(trainer.cfg, trainer.loss, mesh,
+                                        trainer.spatial_lr_scale, trainer.gen)
+        it = 1000
+        active = trainer.loss.active_set(it)
+        args = (float(it), active, trainer.active_sh_degree,
+                trainer.fragment_profile)
+        single, m1 = trainer.step(trainer.state, batch_for(0), *args)
+        sharded, m2 = step(trainer.state, stack_batches([batch_for(0)]),
+                           *args)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    exact = all(torch.equal(a, b) for a, b in zip(
+        [*single.store.params, *single.poses, *single.opt.mu, *single.opt.nu],
+        [*sharded.store.params, *sharded.poses, *sharded.opt.mu,
+         *sharded.opt.nu]))
+    stats = max(_scaled_err(a, b) for a, b in zip(single.stats, sharded.stats))
+    log(f"[multi] (b) one NCCL rank ({mesh.backend}, mesh {mesh.shape}): the "
+        f"sharded step against the trainer's, params / poses / moments "
+        f"bit-identical {exact}, statistics scaled error {stats:.3g}, loss "
+        f"{float(m1['loss']):.6f} / {float(m2['loss']):.6f}")
+    require(exact and stats <= 1e-6
+            and float(m1["loss"]) == float(m2["loss"]),
+            "the sharded step at world size 1 differs from the trainer's")
+
+
+def multi_torchrun_cli(device):
+    """(9d) The train CLI under torchrun, 2 processes over Gloo on the one
+    card, `--mesh data=2`: MULTI_CLI[0] iterations with a snapshot every
+    MULTI_CLI[1], then `--resume` to MULTI_CLI[2]; one writer's files, a log
+    per rank, and the single-process port loads the resume file. Returns
+    each rank's kernel launches of the first run."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    from rodygs_tpu_torch.models import gaussians as G
+    from rodygs_tpu_torch.pipelines.build import build_training_run
+    from rodygs_tpu_torch.utils.checkpoint import load_checkpoint
+    from rodygs_tpu_torch.utils.config import load_yaml
+
+    iters, every, resume_to = MULTI_CLI
+    root = Path(tempfile.mkdtemp(prefix="rodygs_multi_"))
+    env = dict(os.environ, RODYGS_DIST_BACKEND="gloo", OMP_NUM_THREADS="1")
+    try:
+        data = write_cli_scene(root, device, "multi")
+        run = root / "logs" / "multi" / "kubric_777" / "train"
+        walls = []
+        for n, extra in ((iters, []), (resume_to, ["--resume"])):
+            cmd = [sys.executable, "-m", "torch.distributed.run",
+                   "--standalone", "--nproc_per_node", "2", "-m",
+                   "rodygs_tpu_torch.pipelines.train", "-d", str(data), "-b",
+                   CLI_TRAIN_YAML, "-g", "multi", "-n", "kubric", "-l",
+                   str(root / "logs"), "--num_iterations", str(n),
+                   "--checkpoint_every", str(every), "--mesh", "data=2",
+                   *extra, *(["--device", "cpu"] if device.type == "cpu"
+                             else [])]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
+                                 capture_output=True, text=True, timeout=400,
+                                 env=env)
+            walls.append(time.perf_counter() - t0)
+            if res.returncode != 0:
+                log(res.stdout[-4000:] + res.stderr[-4000:])
+            require(res.returncode == 0,
+                    f"torchrun train CLI: exit code {res.returncode}")
+        logs = [(run / f).read_text() for f in ("train.log", "train.p1.log")]
+        files = sorted(p.name for p in run.iterdir() if p.is_file())
+        log(f"[multi] (d) torchrun, 2 ranks, --mesh data=2: {iters} "
+            f"iterations in {walls[0]:.2f} s wall, --resume to {resume_to} "
+            f"in {walls[1]:.2f} s; files {files}")
+        require({"train.log", "train.p1.log", "args.yaml", "config.yaml",
+                 "static_last.ckpt", "dynamic_last.ckpt",
+                 "resume.ckpt"} <= set(files), f"missing run files: {files}")
+        launches = []
+        for i, text in enumerate(logs):
+            require(f"at iteration {iters + 1}" in text
+                    and "'data': %d" % i in text,
+                    f"rank {i}'s log lacks its mesh row or the resume")
+            launches.append(json.loads(text.split("kernel launches ")[1]
+                                       .splitlines()[0]))
+            steps = [json.loads(ln.split("step times ", 1)[1])
+                     for ln in text.splitlines() if "step times " in ln]
+            log(f"[multi] (d) rank {i}: StepTimer p50 "
+                f"{[round(x['p50_ms'], 3) for x in steps]} ms (two ranks "
+                f"sharing one card); launches of the first run {launches[-1]}")
+        require(all(v > 0 for v in launches[0].values()),
+                f"a kernel never launched under torchrun: {launches[0]}")
+        back = build_training_run(load_yaml(str(run / "config.yaml")),
+                                  dirpath=str(data), capacity_factor=4.0,
+                                  device=device)
+        nxt = back.joint.load_resume(run / "resume.ckpt")
+        end = load_checkpoint(run / "static_last.ckpt")[0]
+        same = all(np.array_equal(v.cpu().numpy(), end["model"][k])
+                   for k, v in G.to_state_dict(
+                       back.joint.static.state.store).items())
+        log(f"[multi] (d) the single-process port loads resume.ckpt at "
+            f"iteration {nxt}; the static store equals static_last.ckpt: "
+            f"{same}")
+        require(nxt == resume_to + 1 and same,
+                "the single-process port did not load the mesh's resume file")
+        del back
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches
+
+
+def phase_multi(device, trainer, batch_for, bench_kw=None, joint_kw=None):
+    """Phase 9: (a) the trained bench state's compact render split into 2,
+    3 and 8 tile blocks in this process; (b) the sharded step over one NCCL
+    rank; (c) a world of 4 Gloo ranks on the card (meshes 2x1x2 and 1x2x2,
+    MULTI_STEPS steps each and a densification, then the joint iteration);
+    (d) the train CLI under torchrun. Returns (per-rank launches in (c),
+    {kernel: max_abs_err})."""
+    import torch
+    from rodygs_tpu_torch import kernel_check as KC
+    from rodygs_tpu_torch.parallel.dryrun import run_world
+    from rodygs_tpu_torch.render.rasterize import _default_tight
+    from rodygs_tpu_torch.train.trainer_static import make_camera_from_poses
+
+    t_phase = time.perf_counter()
+    st = trainer.state
+    cam = make_camera_from_poses(st.poses, batch_for(0))
+    s = KC.capture_stages(st.store.params, st.store.alive, cam,
+                          trainer.active_sh_degree, 512, 512,
+                          trainer.fragment_profile, _default_tight(32 * 32), 5)
+    splits = KC.check_tile_splits(s, MULTI_SPLITS)
+    del s
+    log(f"[multi] (a) the trained state's render in {list(MULTI_SPLITS)} "
+        f"tile blocks at their offsets: planes bit-identical to the whole "
+        f"grid's; summed table gradients, scaled error {splits}")
+    multi_nccl_single(device, trainer, batch_for)
+
+    t0 = time.perf_counter()
+    ranks = run_world(multi_rank, 4, (MULTI_MESHES, MULTI_STEPS,
+                                      MULTI_JOINT_ITERATIONS, device.type,
+                                      bench_kw, joint_kw),
+                      backend="gloo", timeout_s=MULTI_TIMEOUT)
+    log(f"[multi] (c) 4 Gloo ranks on one card: {time.perf_counter() - t0:.2f}"
+        f" s wall, every rank sharing the one H100 ({MULTI_REDUCED[0]})")
+    errs = {}
+    for shape in MULTI_MESHES:
+        tag = _mesh_tag(shape)
+        r0 = ranks[0]["meshes"][tag]
+        log(f"[multi] (c) mesh {tag}: first step loss {r0['loss0']:.6f} "
+            f"(relative error against one process's mean-frame loss "
+            f"{r0['loss_rel_err']:.3g}); gradient scaled errors "
+            f"{json.dumps({k: round(v, 8) for k, v in r0['grad_err'].items()})}")
+        require(r0["loss_rel_err"] <= 1e-5, f"{tag}: loss off")
+        require(max(r0["grad_err"].values()) <= 5e-4, f"{tag}: gradients off")
+        for r in ranks:
+            m = r["meshes"][tag]
+            log(f"[multi] (c) mesh {tag} rank {r['rank']} {m['coords']}: "
+                f"losses {m['losses'][0]:.5f} -> {m['losses'][-1]:.5f}, "
+                f"per-rank step ms (4 ranks sharing one card) median "
+                f"{np.median(m['step_ms'][-10:]):.2f}, densify "
+                f"{m['densify']}, alive {m['alive']}, profile {m['profile']}"
+                + (f", Gloo psum of {m['psum_mb']:.1f} MB gradients over the "
+                   f"data axis {m['psum_ms']:.2f} ms" if "psum_ms" in m
+                   else ""))
+            require(all(math.isfinite(x) for x in m["losses"])
+                    and np.mean(m["losses"][-8:]) < np.mean(m["losses"][:8]),
+                    f"{tag} rank {r['rank']}: the loss did not fall")
+            require(m["losses"] == r0["losses"],
+                    f"{tag}: ranks disagree on the loss")
+        if "kernel_errs" in r0:
+            errs = r0["kernel_errs"]
+            log(f"[multi] (c) mesh {tag}: the four kernels against their plain "
+                f"versions on rank 0's share of the render: {errs}")
+    for r in ranks:
+        j = r["joint"]
+        log(f"[multi] (c) joint iterations {MULTI_JOINT_ITERATIONS} rank "
+            f"{r['rank']}: losses {j['losses']}, moved {j['moved']}, "
+            f"densify {j['densify']}; launches {r['launches']}")
+        require(all(math.isfinite(x) for pair in j["losses"] for x in pair)
+                and min(j["moved"]) > 0, "the sharded joint iteration stalled")
+        require(sorted(j["densify"]) == ["dynamic_densify", "static_densify"],
+                "the sharded joint iteration did not densify")
+        require(all(v > 0 for v in r["launches"].values()),
+                f"rank {r['rank']} never launched a kernel: {r['launches']}")
+    require(bool(errs), "no rank held the kernels against their plain versions")
+    launches = [r["launches"] for r in ranks]
+    cli_launches = multi_torchrun_cli(device)
+    log(f"[multi] phase {time.perf_counter() - t_phase:.2f} s")
+    return launches, cli_launches, errs
+
+
 def main() -> int:
     import torch
 
@@ -2292,13 +2698,15 @@ def main() -> int:
     launches_legacy, launches_variants, e_var, legacy_ms = phase_variants(
         device, trainer, batch_for)
     e1080, t1080 = phase_1080p(device)
-    del trainer, st
+    del st
     torch.cuda.empty_cache()
     launches_joint, e_joint, joint_end = phase_joint(device)
     launches_eval, launches_bands, e_eval = phase_eval(device, joint_end)
     del joint_end
     torch.cuda.empty_cache()
     launches_cli, e_cli = phase_cli(device)
+    launches_multi, launches_torchrun, e_multi = phase_multi(
+        device, trainer, batch_for)
 
     rows = []
     for name in kernels.KERNELS:
@@ -2313,10 +2721,14 @@ def main() -> int:
                      "launches_bands": launches_bands[name],
                      "launches_cli": {c: v[name]
                                       for c, v in launches_cli.items()},
+                     "launches_multi": [r[name] for r in launches_multi],
+                     "launches_torchrun": [r[name]
+                                           for r in launches_torchrun],
                      "max_abs_err": max(errs[name], e512[name],
                                         e_var.get(name, 0.0),
                                         e1080.get(name, 0.0), e_joint[name],
-                                        e_eval[name], e_cli[name]),
+                                        e_eval[name], e_cli[name],
+                                        e_multi[name]),
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
@@ -2337,7 +2749,9 @@ def main() -> int:
             f"joint iterations {launches_joint[name]}, inside eval() "
             f"{launches_eval[name]}, in the banded renders "
             f"{launches_bands[name]}, in the CLIs "
-            f"{rows[-1]['launches_cli']}")
+            f"{rows[-1]['launches_cli']}, per rank in the 4-rank world "
+            f"{rows[-1]['launches_multi']}, per rank under torchrun "
+            f"{rows[-1]['launches_torchrun']}")
 
     print(card_name_and_limit())
     print(json.dumps({"kernels": rows}))

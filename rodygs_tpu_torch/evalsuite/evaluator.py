@@ -13,6 +13,9 @@ or anything with the same surface:
 `get_test_sampler()`, `get_train_poses()`, `get_normalization()` and
 `skip_dynamic`.
 
+With several processes (parallel/multihost.py) only the primary writes
+the PNGs, `result.yaml` and the video.
+
 The JAX package renders a chunk of views as one `lax.map` and pads the last
 chunk by repetition so it compiles once; here a chunk is a loop over its
 views and the padding is never rendered. The chunking and the `timing`
@@ -48,6 +51,7 @@ from ..data.readers import GTCameraReader
 from ..models import gaussians as G
 from ..models import motion as M
 from ..ops.quaternion import quat_to_matrix
+from ..parallel.multihost import is_primary
 from ..render.camera import Camera, make_camera
 from ..render.compact import (bands_decision, bands_viable, fit_capacity,
                               fragment_capacity, join_profile,
@@ -297,6 +301,8 @@ class RoDyGSEvaluator:
     # --- main loop ---------------------------------------------------------
 
     def eval(self, eval_batch_size: int = 8) -> dict:
+        # several processes: one writes the PNGs, result.yaml and the video
+        primary = is_primary()
         # 1) resolve every test camera (with the optional pose optimisation)
         views = []
         for idx in self.static_datamodule.get_test_sampler():
@@ -334,8 +340,9 @@ class RoDyGSEvaluator:
                 for k, v in score.items():
                     scores.setdefault(k, []).append(v)
                 name = f"{str(idx).zfill(5)}_{frame['image_name']}.png"
-                self.gt_storer(name, np.asarray(gt))
-                self.pred_storer(name, pred)
+                if primary:
+                    self.gt_storer(name, np.asarray(gt))
+                    self.pred_storer(name, pred)
 
         def _mean(vals):
             arr = np.asarray(vals, np.float64)
@@ -374,10 +381,12 @@ class RoDyGSEvaluator:
         result["pose"] = {k: float(pose_scores[k])
                           for k in ("ATE", "RPE_trans", "RPE_rot")}
 
-        with open(self.out_path / "result.yaml", "w") as f:
-            yaml.safe_dump(result, f)
-        # the PNG writes are asynchronous: flush before the video reads them
-        self.gt_storer.flush()
-        self.pred_storer.flush()
-        write_video(self.out_path / "pred" / "viz", self.out_path / "video.mp4")
+        if primary:
+            with open(self.out_path / "result.yaml", "w") as f:
+                yaml.safe_dump(result, f)
+            # the PNG writes are asynchronous: flush before the video reads
+            self.gt_storer.flush()
+            self.pred_storer.flush()
+            write_video(self.out_path / "pred" / "viz",
+                        self.out_path / "video.mp4")
         return result

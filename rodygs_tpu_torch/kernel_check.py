@@ -12,7 +12,10 @@ bits), `check_bands` holds all four on a banded binning,
 `synthetic_ranges` makes their inputs from chosen slot counts per
 gaussian, `slot_stats` describes the slot ranges both walk, and
 `poisoned_expand` fills every record the expand contract leaves unwritten
-with NaN. `needed_pairs` counts the
+with NaN. `check_tile_splits` composites a captured render in n tile
+blocks at their offsets, as the ranks of a tile axis do, against the whole
+grid; `check_tile_block` holds the four kernels against their plain
+versions on what one such rank runs. `needed_pairs` counts the
 (pixel, fragment) pairs the compositor must evaluate on that data, for the
 kernels' operation bound; `walk_stats` counts the same walk at warp
 granularity. `random_scene` builds the seeded test scene these checks run
@@ -50,6 +53,9 @@ TOL_FWD_IMAGE = 2e-5
 TOL_FWD_GEOMETRY = 2e-4
 TOL_BWD_SCALED = 5e-4
 TOL_SEGSUM_SCALED = 1e-5
+# the table gradients of n tile blocks summed, against the whole grid's:
+# each block's sums run over its own fragments only (1e-5 of the maximum)
+TOL_SPLIT_SCALED = 1e-5
 
 
 class KernelMismatch(AssertionError):
@@ -125,7 +131,7 @@ def capture_stages(params: G.GaussianParams, alive, camera, sh_degree: int,
     d_presort = torch.empty((n_rows, perm.shape[0]), device=table.device)
     d_presort[:, perm] = d_rec[:n_rows]
     return dict(tx=tx, db=db, cb=cb, table=table, key=key, rec=rec,
-                records=records, off=off, out=out, gout=gout,
+                perm=perm, records=records, off=off, out=out, gout=gout,
                 d_presort=d_presort, include_normal=include_normal)
 
 
@@ -320,6 +326,93 @@ def check_stages(s: dict, tiles: bool = True) -> dict:
         errs.update(check_tiles(s["records"], cb.tile_starts, cb.tile_counts,
                                 s["off"], s["tx"], s["include_normal"],
                                 out=s["out"], gout=s["gout"]))
+    return errs
+
+
+def _block_cotangent(gout, n_blocks: int, index: int):
+    """Block `index` of n of the planes' cotangent, the last block padded
+    with zero planes (rasterize.tile_block's blocks)."""
+    t = gout.shape[0]
+    t_local = -(-t // n_blocks)
+    pad = torch.nn.functional.pad(gout, (0, 0, 0, 0, 0, n_blocks * t_local - t))
+    return pad[index * t_local:(index + 1) * t_local].contiguous()
+
+
+def check_tile_splits(s: dict, splits) -> dict:
+    """The captured render's compositing (`composite_compact`: expand,
+    sort, tile forward; tile backward, unsort, segsum) split into n
+    contiguous tile blocks, each at its global tile offset, as the ranks of
+    a tile axis run it: the blocks' planes concatenated must equal the
+    whole grid's bit for bit, and the blocks' table gradients summed must
+    lie within TOL_SPLIT_SCALED of the whole grid's maximum. Returns {n:
+    scaled error of the summed gradients}."""
+    from .render.rasterize import tile_block
+
+    cb, tx = s["cb"], s["tx"]
+    num_tiles = cb.tile_starts.shape[0]
+
+    def composite(starts, counts, off, gout):
+        table = s["table"].detach().clone().requires_grad_(True)
+        out = C.composite_compact(table, cb.bases, cb.f_kept, starts, counts,
+                                  off, tx, num_tiles // tx,
+                                  s["include_normal"])
+        (d_table,) = torch.autograd.grad(out, table, gout)
+        return out.detach(), d_table
+
+    whole, d_whole = composite(cb.tile_starts, cb.tile_counts, s["off"],
+                               s["gout"])
+    scale = float(d_whole.abs().max()) + 1e-30
+    errs = {}
+    for n in splits:
+        outs, d_sum = [], torch.zeros_like(d_whole)
+        for i in range(n):
+            starts, counts, off = tile_block(cb.tile_starts, cb.tile_counts,
+                                             n, i, num_tiles)
+            out, d = composite(starts, counts, off,
+                               _block_cotangent(s["gout"], n, i))
+            outs.append(out)
+            d_sum += d
+        _require(torch.equal(torch.cat(outs)[:num_tiles], whole),
+                 f"{n} tile blocks: the planes differ from the whole grid's")
+        errs[n] = float((d_sum - d_whole).abs().max()) / scale
+        _require(errs[n] <= TOL_SPLIT_SCALED,
+                 f"{n} tile blocks: summed table gradients off by {errs[n]:.3g}"
+                 " of their max")
+    return errs
+
+
+@torch.no_grad()
+def check_tile_block(s: dict, n_blocks: int, index: int) -> dict:
+    """The four kernels against their plain versions on what rank `index`
+    of an n-block tile axis runs on the captured render: expand on the
+    whole table, the tile kernels on its block at its offset, segsum on the
+    block's fragment gradients. The tile backward must leave every fragment
+    outside the block at exactly zero. Returns {kernel: max_abs_err}."""
+    from .render.rasterize import tile_block
+
+    cb, tx, rec = s["cb"], s["tx"], s["records"]
+    starts, counts, off = tile_block(cb.tile_starts, cb.tile_counts, n_blocks,
+                                     index, cb.tile_starts.shape[0])
+    gout = _block_cotangent(s["gout"], n_blocks, index)
+    out = TK.rasterize_fwd_impl(rec, starts, counts, off, tx,
+                                s["include_normal"])
+    errs = check_tiles(rec, starts, counts, off, tx, s["include_normal"],
+                       out=out, gout=gout)
+    d_rec = TK.rasterize_bwd_impl(rec, starts, counts, off, out, gout, tx,
+                                  s["include_normal"])
+    # the block's fragments: the union of its tiles' column ranges
+    edge = torch.zeros(rec.shape[1] + 1, dtype=torch.int64, device=rec.device)
+    edge.index_add_(0, starts.long(), (counts > 0).long())
+    edge.index_add_(0, (starts + counts).long(), -(counts > 0).long())
+    inside = torch.cumsum(edge, 0)[:-1] > 0
+    _require(bool((d_rec[:, ~inside] == 0).all()),
+             "tile_bwd: a gradient outside the rank's block")
+    n_rows = s["d_presort"].shape[0]
+    d_presort = torch.empty_like(s["d_presort"])
+    d_presort[:, s["perm"]] = d_rec[:n_rows]
+    errs.update(check_fragment_kernels(s["table"], cb.bases, cb.f_kept, tx,
+                                       s["db"], d_presort, key=s["key"],
+                                       rec=s["rec"]))
     return errs
 
 

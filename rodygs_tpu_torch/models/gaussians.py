@@ -1,8 +1,7 @@
 """Gaussian store: fixed-capacity NamedTuples of tensors with an alive mask.
 Port of `rodygs_tpu/models/gaussians.py` (fields, activations,
 `from_point_cloud`, `capacity_of`, `num_alive`, `unique_times`,
-`sh_degree_up`, `to_state_dict` / `from_state_dict`; `shard_interleave`
-waits for multi-device).
+`sh_degree_up`, `to_state_dict` / `from_state_dict`, `shard_interleave`).
 
 Raw (pre-activation) parameters keep the JAX field names and layouts so
 state converts one-to-one (convert.py). Dead capacity slots carry zeroed
@@ -42,6 +41,23 @@ class GaussianStore(NamedTuple):
 
 def inverse_sigmoid(x):
     return torch.log(x / (1.0 - x))
+
+
+def shard_interleave(store: GaussianStore, n_shards: int) -> GaussianStore:
+    """Permute capacity slots so the alive Gaussians (packed at the front by
+    `from_point_cloud`) spread round-robin over `n_shards` equal blocks:
+    done once before the store is split over a "gauss" mesh axis, so every
+    shard starts with ~n/S alive slots and equal densification headroom.
+    Slot order is otherwise free (it only breaks depth-sort ties)."""
+    c = capacity_of(store)
+    if c % n_shards:
+        raise ValueError(f"capacity {c} does not split into {n_shards} shards")
+    src = torch.as_tensor(
+        np.arange(c).reshape(c // n_shards, n_shards).T.reshape(-1),
+        device=store.alive.device)
+    params = type(store.params)(*[x[src] for x in store.params])
+    return GaussianStore(params=params, alive=store.alive[src],
+                         time=store.time[src], time_ind=store.time_ind[src])
 
 
 def capacity_of(store: GaussianStore) -> int:

@@ -1,12 +1,18 @@
 """Config-driven assembly: YAML -> datamodules, models, trainers. Port of
-`rodygs_tpu/pipelines/build.py` (one device; the JAX package's mesh and
-multi-host branches wait for multi-device, ROADMAP queue item 4).
+`rodygs_tpu/pipelines/build.py`.
 
 The shipped YAMLs name the reference's classes; utils/config.py maps them
 onto the `*Spec` classes here, which keep the constructor params, and
 `build_training_run` assembles the trainers from them and the loaded data.
 The trainers draw from seeded `torch.Generator`s: the static trainer's is
 seeded with `seed`, the dynamic trainer's with `seed + 1`.
+
+On a mesh (`mesh=`) every iteration consumes `mesh.shape["data"]` frames:
+every rank draws the same stacked batch from the same seeded samplers
+(cycling them when they bound their length), and the sharded steps take
+row `coords["data"]`. The resume decision is the primary's
+(`multihost.broadcast_flag`), so no rank can skip the collectives of a
+load another rank takes.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ import torch
 
 from ..data.datamodule import GSDataModule
 from ..models import gaussians as G
+from ..parallel.multihost import broadcast_flag
 from ..train.losses import MultiLoss
 from ..train.optim import CameraPoses
 from ..train.trainer_dynamic import DynTrainer, DynTrainerConfig
@@ -114,7 +121,7 @@ class TrainingRun:
     def __init__(self, joint: RoDyGSTrainer, static_dm: GSDataModule,
                  dynamic_dm: GSDataModule | None, num_iterations: int,
                  logdir: Path | None, log_freq: int = 50, seed: int = 777,
-                 logger=None, checkpoint_every: int = 0):
+                 logger=None, checkpoint_every: int = 0, mesh=None):
         self.joint = joint
         self.static_dm = static_dm
         self.dynamic_dm = dynamic_dm
@@ -127,6 +134,8 @@ class TrainingRun:
         # resumable snapshot every k iterations
         self.checkpoint_every = checkpoint_every
         self.device = joint.static.device
+        self.mesh = mesh
+        self.frames_per_iter = 1 if mesh is None else mesh.shape["data"]
 
     def _log(self, msg: str):
         if self.logger is not None:
@@ -134,11 +143,22 @@ class TrainingRun:
         else:
             print(msg)
 
+    def _static_alive(self) -> int:
+        """Alive static Gaussians over every gauss block (a collective on a
+        mesh: every rank logs on the same iterations)."""
+        alive = G.num_alive(self.joint.static.state.store)
+        if self.mesh is not None:
+            from ..parallel.collectives import psum
+
+            alive = psum(alive.reshape(1), self.mesh.axis("gauss"))
+        return int(alive)
+
     def train(self, resume: bool = False) -> RoDyGSTrainer:
         start_iter = 1
         resume_path = (self.logdir / "resume.ckpt"
                        if self.logdir is not None else None)
-        if resume and resume_path is not None and resume_path.exists():
+        if broadcast_flag(resume and resume_path is not None
+                          and resume_path.exists()):
             self.joint.logdir = Path(self.logdir)
             start_iter = self.joint.load_resume(resume_path)
             self._log(f"resumed from {resume_path} at iteration {start_iter}")
@@ -152,7 +172,7 @@ class TrainingRun:
                     if dyn_iter is not None else None)
         t0 = time.time()
 
-        def draw_batch(it_, dm, dset):
+        def draw(it_, dm, dset):
             """The next frame, restarting a sampler that bounds its length."""
             try:
                 idx = next(it_)
@@ -160,6 +180,17 @@ class TrainingRun:
                 it_ = iter(dm.get_train_sampler())
                 idx = next(it_)
             return make_frame_batch(dset[idx], idx, self.device), it_
+
+        def draw_batch(it_, dm, dset):
+            if self.mesh is None:
+                return draw(it_, dm, dset)
+            from ..parallel.sharded import stack_batches
+
+            frames = []
+            for _ in range(self.frames_per_iter):
+                frame, it_ = draw(it_, dm, dset)
+                frames.append(frame)
+            return stack_batches(frames), it_
 
         for it in range(start_iter, self.num_iterations + 1):
             sb, static_iter = draw_batch(static_iter, self.static_dm,
@@ -177,7 +208,7 @@ class TrainingRun:
                 s_loss = float(metrics["static"]["loss"])
                 d_loss = (float(metrics["dynamic"]["loss"])
                           if "dynamic" in metrics else float("nan"))
-                alive_s = int(G.num_alive(self.joint.static.state.store))
+                alive_s = self._static_alive()
                 tstats = timer.summary()
                 self._log(
                     f"[{it}/{self.num_iterations}] static {s_loss:.4f} "
@@ -195,12 +226,13 @@ class TrainingRun:
 def build_training_run(config: dict, dirpath: str | None = None,
                        logdir: str | Path | None = None,
                        seed: int = 777, capacity_factor: float = 4.0,
-                       logger=None, device=None) -> TrainingRun:
+                       logger=None, device=None, mesh=None) -> TrainingRun:
     """Assemble the training job from a merged reference-style config, on
-    `device` (`cuda` unless the caller asks for the CPU)."""
+    `device` (`cuda` unless the caller asks for the CPU), or on this rank's
+    device of `mesh` (the trainers' mesh branches)."""
     from ..utils.native import backend
 
-    dev = resolve_device(device)
+    dev = resolve_device(mesh.device if mesh is not None else device)
     t0 = time.perf_counter()
     static_dm = instantiate_from_config(
         config["static_data"],
@@ -235,7 +267,7 @@ def build_training_run(config: dict, dirpath: str | None = None,
     poses = CameraPoses(q_c2w=torch.as_tensor(dset.q_c2w, device=dev),
                         t_c2w=torch.as_tensor(dset.t_c2w, device=dev))
     static_trainer = ThreeDGSTrainer(s_cfg, s_loss, s_store, poses, s_norm,
-                                     device=dev, seed=seed)
+                                     device=dev, seed=seed, mesh=mesh)
 
     # --- dynamic -----------------------------------------------------------
     dyn_trainer = None
@@ -256,17 +288,17 @@ def build_training_run(config: dict, dirpath: str | None = None,
             times=d_pcd.time, isotropic=d_cfg.isotropic,
             capacity_factor=capacity_factor, device=dev)
         dyn_trainer = DynTrainer(d_cfg, d_loss, d_store, d_norm,
-                                 seed=seed + 1, device=dev)
+                                 seed=seed + 1, device=dev, mesh=mesh)
 
     joint = RoDyGSTrainer(
         static_trainer, dyn_trainer,
         sh_up_start_iteration=trainer_cfg.get("sh_up_start_iteration", 0),
         sh_up_period=trainer_cfg.get("sh_up_period", 1000),
         log_freq=trainer_cfg.get("log_freq", 50),
-        logdir=logdir)
+        logdir=logdir, mesh=mesh)
 
     num_iterations = static_spec["num_iterations"]
     return TrainingRun(joint, static_dm, dynamic_dm, num_iterations,
                        Path(logdir) if logdir else None,
                        log_freq=trainer_cfg.get("log_freq", 50), seed=seed,
-                       logger=logger)
+                       logger=logger, mesh=mesh)

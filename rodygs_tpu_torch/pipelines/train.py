@@ -10,6 +10,17 @@ each CUDA kernel launched (all zero on the CPU).
 
     python -m rodygs_tpu_torch.pipelines.train -d <scene> \\
         -b configs/train/train_kubric_mrig.yaml -n <name> [--device cpu]
+
+Multi-process (`--mesh data=N[,gauss=N][,tile=N]`, one process per mesh
+position): launched by torchrun or with RODYGS_COORDINATOR /
+RODYGS_NUM_PROCESSES / RODYGS_PROCESS_ID, the backend in
+RODYGS_DIST_BACKEND (parallel/multihost.py). Only the primary creates the
+logdir and writes args.yaml, config.yaml and the code snapshot; the others
+wait for the logdir (bounded) and each logs to its own `train.p<i>.log`.
+
+    RODYGS_DIST_BACKEND=gloo torchrun --standalone --nproc_per_node 2 \\
+        -m rodygs_tpu_torch.pipelines.train -d <scene> -b <yaml> -n <name> \\
+        --mesh data=2
 """
 
 from __future__ import annotations
@@ -18,6 +29,7 @@ import argparse
 import json
 import os
 import shutil
+import time
 from pathlib import Path
 
 import yaml
@@ -33,9 +45,20 @@ def check_argument_sanity(args) -> None:
             raise SystemExit(f"config does not exist: {cfg}")
 
 
-def set_traindir(args) -> Path:
+def set_traindir(args, primary: bool = True, timeout_s: float = 300.0) -> Path:
+    """The run's logdir. The primary creates it (a fresh run must not find
+    it, unless --debug or --resume); a secondary never creates it, which
+    would trip the primary's check, and waits for it, bounded."""
     logdir = Path(args.logdir) / args.group / f"{args.name}_{args.seed}" / "train"
-    logdir.mkdir(parents=True, exist_ok=args.debug or args.resume)
+    if primary:
+        logdir.mkdir(parents=True, exist_ok=args.debug or args.resume)
+        return logdir
+    deadline = time.monotonic() + timeout_s
+    while not logdir.is_dir():
+        if time.monotonic() > deadline:
+            raise RuntimeError(f"secondary process timed out waiting for the "
+                               f"primary to create {logdir}")
+        time.sleep(0.5)
     return logdir
 
 
@@ -99,8 +122,12 @@ def parse_args(argv=None):
     parser.add_argument("--resume", action="store_true",
                         help="resume from <logdir>/resume.ckpt if present")
     parser.add_argument("--mesh", type=str, default=None,
-                        help="device mesh (multi-device training is not "
-                             "ported yet; the argument is refused)")
+                        help='process mesh, e.g. "data=2" or '
+                             '"data=2,gauss=2,tile=2": frame data '
+                             "parallelism x gaussian-store sharding x "
+                             "tile-space sharding, one process per "
+                             "position. Each step consumes `data` frames "
+                             "(mean frame loss).")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device (default cuda; cpu only when "
                              "asked for)")
@@ -110,16 +137,38 @@ def parse_args(argv=None):
     return args, unknown
 
 
+def parse_mesh_arg(spec: str, device=None):
+    """'data=2,gauss=2,tile=2' -> Mesh via parallel.mesh.make_mesh."""
+    from ..parallel.mesh import make_mesh
+
+    sizes = {"data": 1, "gauss": 1, "tile": 1}
+    for kv in spec.split(","):
+        k, _, v = kv.partition("=")
+        k = k.strip()
+        if k not in sizes or not v.strip().isdigit():
+            raise SystemExit(
+                f"--mesh: expected 'data=N[,gauss=N][,tile=N]', got {spec!r}")
+        sizes[k] = int(v)
+    return make_mesh(n_data=sizes["data"], n_tile=sizes["tile"],
+                     n_gauss=sizes["gauss"], device=device)
+
+
 def main(argv=None):
+    from ..parallel.multihost import (is_primary, maybe_initialize_distributed,
+                                      process_index)
+
+    maybe_initialize_distributed()
     args, overrides = parse_args(argv)
-    if args.mesh is not None:
-        raise SystemExit(
-            "--mesh: multi-device training is not ported to rodygs_tpu_torch "
-            "yet (ROADMAP queue item 4, multi-device); run without --mesh")
     from ..utils.platform import resolve_device
 
     device = resolve_device(args.device)
     check_argument_sanity(args)
+    mesh = None
+    if args.mesh:
+        # a rank's device: cuda:(LOCAL_RANK % cards), or the CPU if asked
+        mesh = parse_mesh_arg(args.mesh, device if device.type == "cpu"
+                              else None)
+        device = mesh.device
     if args.verbose:
         os.environ["VERBOSE_RUN"] = "1"
 
@@ -133,19 +182,31 @@ def main(argv=None):
     from .build import build_training_run
 
     seed_all(args.seed)
-    logdir = set_traindir(args)
-    logger = set_logger(logdir, name="train")
-    store_args_and_config(logdir, args, config)
-    store_code(logdir)
+    primary = is_primary()
+    logdir = set_traindir(args, primary=primary)
+    # one log per process: appends of several processes to one file tear
+    logger = set_logger(logdir, name="train" if primary
+                        else f"train.p{process_index()}")
+    if primary:
+        store_args_and_config(logdir, args, config)
+        store_code(logdir)
 
+    if mesh is not None:
+        logger.info(f"mesh {mesh.shape}: rank {mesh.rank} at {mesh.coords} "
+                    f"on {device} ({mesh.backend})")
     run = build_training_run(
         config, dirpath=args.datadir, logdir=logdir, seed=args.seed,
-        capacity_factor=args.capacity_factor, logger=logger, device=device)
+        capacity_factor=args.capacity_factor, logger=logger, device=device,
+        mesh=mesh)
     run.checkpoint_every = args.checkpoint_every
     logger.info(f"training for {run.num_iterations} iterations on {device}")
     kernels.reset_launches()
     run.train(resume=args.resume)
     logger.info(f"kernel launches {json.dumps(kernels.LAUNCHES)}")
+    if mesh is not None and mesh.world_size > 1:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return run
 
 

@@ -1,5 +1,4 @@
-"""Public differentiable renderer. Port of `rodygs_tpu/render/rasterize.py`
-on one device.
+"""Public differentiable renderer. Port of `rodygs_tpu/render/rasterize.py`.
 
 `render()` takes activated per-Gaussian tensors and a `Camera` and returns
 the JAX package's output dict: rendered_image / rendered_depth /
@@ -36,8 +35,20 @@ by default; `bf16_records=` overrides per call), RODYGS_FWD_RECORDS (sort |
 gather), RODYGS_TIGHT_RECT (auto | 0 | 1 | rows; anything else raises) and
 RODYGS_SORT_BANDS (auto | an integer).
 
-Not ported yet (ROADMAP queue 1 item 4): the `tile_axis` / `gauss_axis`
-sharding axes.
+Sharding, inside a multi-process mesh (parallel/mesh.py); each argument
+takes a mesh `Axis`, the composite `mesh.axis(("gauss", "tile"))`
+included:
+  * `tile_axis`: the axis over which the tile grid splits. This rank
+    composites one contiguous block of ceil(T/n) tiles (the last block
+    padded with zero-count tiles) at its global tile offset; the planes
+    come back together through a tiled all-gather, whose backward hands
+    each rank exactly its own tiles' cotangents.
+  * `gauss_axis`: the axis over which the Gaussian store is split. The
+    inputs are this rank's block; the projected Splats2D fields are
+    all-gathered along their last dimension (one gather of the packed
+    fields), and the gather's backward (a reduce-scatter) returns each
+    block exactly its own gradients. radii / visibility_filter cover the
+    whole gathered set, in block order: callers take their own block.
 """
 
 from __future__ import annotations
@@ -46,13 +57,15 @@ import os
 
 import torch
 
+from ..parallel.collectives import all_gather
 from ..utils.platform import strict_fp32
 from .binning import CHUNK, DUMMY_COLS, bin_splats, tile_grid
 from .camera import Camera
 from .compact import (build_binning, build_table, composite_compact,
                       fragment_capacity, padded_width, split_profile)
 from .preprocess import Splats2D, preprocess
-from .tile_kernel import rasterize_tiles, tiles_to_image
+from .tile_kernel import (rasterize_tiles, rasterize_tiles_ranged,
+                          tiles_to_image)
 
 # backward unsort of the compact path (composite_compact): "sort" or "gather"
 _BWD_UNSORT = os.environ.get("RODYGS_BWD_UNSORT", "sort")
@@ -121,6 +134,41 @@ def _pack_records(splats: Splats2D) -> torch.Tensor:
     return torch.cat([rec, rec.new_zeros((16, DUMMY_COLS))], dim=1)
 
 
+def _gather_splats(splats: Splats2D, axis) -> Splats2D:
+    """The axis's Splats2D blocks concatenated along N: the fields packed
+    into one [R, N] float32 tensor for a single differentiable gather (the
+    int32 radius, below 2^24, and the bool visibility ride along exactly)."""
+    fields = [splats.mean2d, splats.conic, splats.depth[None], splats.rgb,
+              splats.opacity[None], splats.normal,
+              splats.radius[None].to(torch.float32),
+              splats.visible[None].to(torch.float32), splats.ext]
+    rows = [f.shape[0] for f in fields]
+    parts = all_gather(torch.cat(fields), axis, dim=1).split(rows)
+    mean2d, conic, depth, rgb, opacity, normal, radius, visible, ext = parts
+    return Splats2D(mean2d=mean2d, conic=conic, depth=depth[0], rgb=rgb,
+                    opacity=opacity[0], normal=normal,
+                    radius=radius[0].to(torch.int32),
+                    visible=visible[0] > 0.5, ext=ext)
+
+
+def tile_block(tile_starts, tile_counts, n_blocks: int, index: int,
+               num_tiles: int):
+    """Block `index` of `n_blocks` contiguous blocks of the tile ranges:
+    (starts, counts, [1] i32 global id of its first tile). Blocks hold
+    ceil(T/n) tiles; the last is padded with zero-count tiles."""
+    t_local = -(-num_tiles // n_blocks)
+    t0 = index * t_local
+    pad = n_blocks * t_local - num_tiles
+    starts = torch.nn.functional.pad(tile_starts, (0, pad))
+    counts = torch.nn.functional.pad(tile_counts, (0, pad))
+    offset = torch.tensor([t0], dtype=torch.int32, device=tile_starts.device)
+    return (starts[t0:t0 + t_local], counts[t0:t0 + t_local], offset)
+
+
+def _gather_tiles(local_out, axis, num_tiles: int):
+    return all_gather(local_out, axis, dim=0)[:num_tiles]
+
+
 def render(
     means3d: torch.Tensor,
     shs: torch.Tensor,
@@ -144,6 +192,8 @@ def render(
     tight_rect: bool | str | None = None,
     pose_grad_only: bool = False,
     sort_bands: int | None = None,
+    tile_axis=None,
+    gauss_axis=None,
 ) -> dict:
     """Differentiable tile rasterization of N Gaussians.
 
@@ -155,7 +205,8 @@ def render(
     default; `bf16_records` the process's bf16 payload default.
     `max_fragments` is accepted and not used, as in the JAX package: both
     binnings size their capacity from N and the profile. The compact-path
-    options do not apply to the legacy path.
+    options do not apply to the legacy path. `tile_axis` / `gauss_axis`:
+    see the module docstring.
     """
     if means3d.is_cuda:
         strict_fp32()
@@ -171,6 +222,8 @@ def render(
         scale = torch.tensor([[0.5 * image_width], [0.5 * image_height]],
                              dtype=torch.float32, device=means3d.device)
         splats = splats._replace(mean2d=splats.mean2d + means2d_offset * scale)
+    if gauss_axis is not None:
+        splats = _gather_splats(splats, gauss_axis)
 
     num_tiles = tiles_x * tiles_y
     if binning_mode == "compact":
@@ -198,11 +251,19 @@ def render(
         else:
             table = build_table(rec13, cb.aux_rows)
         bf16 = _BF16_RECORDS if bf16_records is None else bf16_records
+        if tile_axis is None:
+            starts, counts = cb.tile_starts, cb.tile_counts
+            offset = torch.zeros((1,), dtype=torch.int32,
+                                 device=means3d.device)
+        else:
+            starts, counts, offset = tile_block(
+                cb.tile_starts, cb.tile_counts, tile_axis.size,
+                tile_axis.index, num_tiles)
         tile_out = composite_compact(
-            table, cb.bases, cb.f_kept, cb.tile_starts, cb.tile_counts,
-            torch.zeros((1,), dtype=torch.int32, device=means3d.device),
-            tiles_x, tiles_y, include_normal, _BWD_UNSORT, bf16,
-            _FWD_RECORDS, bands)
+            table, cb.bases, cb.f_kept, starts, counts, offset, tiles_x,
+            tiles_y, include_normal, _BWD_UNSORT, bf16, _FWD_RECORDS, bands)
+        if tile_axis is not None:
+            tile_out = _gather_tiles(tile_out, tile_axis, num_tiles)
         num_fragments, overflow, dropped = (cb.num_fragments, cb.overflow,
                                             cb.dropped)
     elif binning_mode == "legacy":
@@ -212,8 +273,16 @@ def render(
             profile=fragment_profile)
         # the gather's backward is the scatter-add index_add_
         padded = _pack_records(splats).index_select(1, binning.padded_gid)
-        tile_out = rasterize_tiles(padded, binning.tile_starts,
-                                   binning.tile_counts, tiles_x)
+        if tile_axis is None:
+            tile_out = rasterize_tiles(padded, binning.tile_starts,
+                                       binning.tile_counts, tiles_x)
+        else:
+            starts, counts, offset = tile_block(
+                binning.tile_starts, binning.tile_counts, tile_axis.size,
+                tile_axis.index, num_tiles)
+            tile_out = _gather_tiles(rasterize_tiles_ranged(
+                padded, starts, counts, offset, tiles_x), tile_axis,
+                num_tiles)
         num_fragments, overflow = binning.num_fragments, binning.overflow
         # spans are clamped, not whole gaussians dropped: no exact count
         dropped = torch.where(overflow, -1, 0).to(torch.int32)

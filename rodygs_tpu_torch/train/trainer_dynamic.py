@@ -1,12 +1,17 @@
 """Dynamic (motion-basis) Gaussian trainer. Port of
 `rodygs_tpu/train/trainer_dynamic.py` (`DynTrainerConfig`, `DynParams`,
-`DynTrainState`, `DynTrainer`; the `mesh` branches wait for multi-device).
+`DynTrainState`, `DynTrainer`).
 
 The static trainer's Gaussian params plus the motion coefficients and the
 motion net, one Adam over all of them; densification moves the
 coefficients and their moments with their Gaussians. Rendering happens in
 the joint trainer (trainer_joint.py), on the static set concatenated with
 the deformed dynamic set.
+
+Multi-device (`mesh=`): the dynamic state stays whole on every rank (with
+a gauss axis its slots are interleaved first); densification runs per
+gauss shard on the rank's slice, with a generator seeded per shard, and
+the slices are gathered again (parallel/sharded.py).
 
 Reference behaviour kept: the reference builds an exponential deform-LR
 schedule but never applies it (its LR update matches the group name
@@ -25,11 +30,14 @@ from ..models import gaussians as G
 from ..models import motion as M
 from ..ops.schedules import expon_lr
 from ..utils.platform import resolve_device
+from ..render.rasterize import render
 from .densify import DensifyStats, densify_and_prune, init_stats
 from .losses import MultiLoss
-from .optim import AdamState, adam_init, tree_map
-from .trainer_static import (StaticTrainerConfig, _param_lr_tree,
-                             densify_due, scene_lr_gate, screen_size_threshold)
+from .optim import (AdamState, CameraPoses, adam_init, adam_update,
+                    tree_leaves, tree_map)
+from .trainer_static import (FrameBatch, StaticTrainerConfig, _param_lr_tree,
+                             densify_due, make_camera_from_poses,
+                             scene_lr_gate, screen_size_threshold)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -76,8 +84,10 @@ class DynTrainer:
 
     def __init__(self, cfg: DynTrainerConfig, loss: MultiLoss,
                  store: G.GaussianStore, spatial_lr_scale: float,
-                 seed: int = 0, device=None):
-        self.device = resolve_device(device)
+                 seed: int = 0, device=None, mesh=None):
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     else device)
         self.cfg = cfg
         self.loss = loss
         self.spatial_lr_scale = float(spatial_lr_scale)
@@ -89,7 +99,11 @@ class DynTrainer:
             activation=cfg.activation,
         )
         store = tree_map(lambda x: x.to(self.device), store)
+        n_gauss = 1 if mesh is None else mesh.shape["gauss"]
+        if n_gauss > 1:
+            store = G.shard_interleave(store, n_gauss)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.densify_gen = self.gen
         cap = G.capacity_of(store)
         net = M.init_motion_params(self.gen, self.net_cfg, self.device)
         coeff = torch.zeros((cap, 1, cfg.num_basis), device=self.device)
@@ -101,11 +115,23 @@ class DynTrainer:
         # the unique birth times: the inverse-motion canonicalisation table
         self.unique_times = torch.tensor(G.unique_times(store),
                                          dtype=torch.float32, device=self.device)
+        if mesh is not None:
+            from ..parallel import sharded
+
+            if n_gauss > 1:
+                self.densify_gen = torch.Generator(
+                    device=self.device).manual_seed(
+                        sharded.fold_in_seed(seed, mesh.coords["gauss"]))
+            self._sharded_densify = sharded.make_sharded_dynamic_densify(
+                self.densify_block, mesh)
+
+    @staticmethod
+    def params_of(state: DynTrainState) -> DynParams:
+        return DynParams(gauss=state.store.params,
+                         motion_coeff=state.motion_coeff, net=state.net)
 
     def params(self) -> DynParams:
-        return DynParams(gauss=self.state.store.params,
-                         motion_coeff=self.state.motion_coeff,
-                         net=self.state.net)
+        return self.params_of(self.state)
 
     def lr_tree(self, iteration) -> DynParams:
         cfg = self.cfg
@@ -131,8 +157,115 @@ class DynTrainer:
     def motion_table(self, params: DynParams):
         return M.motion_table(params.net, self.net_cfg, self.unique_times)
 
+    def loss_and_grads(self, dyn_state: DynTrainState,
+                       static_store: G.GaussianStore, poses: CameraPoses,
+                       batch: FrameBatch, active, sh_degree: int,
+                       use_deform: bool, fragment_profile="lean",
+                       dyn_rows: slice = slice(None), tile_axis=None,
+                       gauss_axis=None, loss_scale: float = 1.0):
+        """The first half of a dynamic step: render the static set (and
+        poses) detached, concatenated with the deformed dynamic rows
+        `dyn_rows`; the loss, aux outputs and the gradients (DynParams, the
+        `means2d` offset over [static | dyn_rows]). On a mesh
+        (parallel/sharded.py) `static_store` is this rank's gauss block,
+        `dyn_rows` its slice of the replicated dynamic store, the render
+        splits over `tile_axis` / `gauss_axis`, `radii` / `visible` cover
+        the gathered set, and the differentiated loss is `total *
+        loss_scale`."""
+        cfg = self.cfg
+        sp = tree_map(lambda x: x.detach(), static_store.params)
+        params = tree_map(lambda x: x.detach().requires_grad_(True),
+                          self.params_of(dyn_state))
+        gp = params.gauss
+        cd = G.capacity_of(dyn_state.store)
+        if use_deform:
+            transl, rot_delta = self.deformation(params, batch.time,
+                                                 dyn_state.store.time_ind)
+        else:
+            transl = torch.zeros_like(gp.xyz)
+            rot_delta = torch.zeros((cd, 4), device=gp.xyz.device)
+        dyn_rot = G.get_rotation(gp)
+        if not cfg.isotropic:
+            dyn_rot = dyn_rot + rot_delta
+        d_alive = dyn_state.store.alive
+
+        def cat(s, d):
+            return torch.cat([s, d[dyn_rows]])
+
+        alive = cat(static_store.alive, d_alive)
+        offset = torch.zeros((2, alive.shape[0]), device=alive.device,
+                             requires_grad=True)
+        out = render(
+            cat(sp.xyz, gp.xyz + transl),
+            cat(G.get_features(sp), G.get_features(gp)),
+            cat(G.get_opacity(sp), G.get_opacity(gp)),
+            cat(G.get_scaling(sp, cfg.isotropic),
+                G.get_scaling(gp, cfg.isotropic)),
+            cat(G.get_rotation(sp), dyn_rot),
+            make_camera_from_poses(CameraPoses(*[p.detach() for p in poses]),
+                                   batch),
+            sh_degree, cfg.image_width, cfg.image_height, alive=alive,
+            means2d_offset=offset, max_fragments=cfg.max_fragments,
+            fragment_profile=fragment_profile,
+            include_normal=self.loss.uses_normal, tile_axis=tile_axis,
+            gauss_axis=gauss_axis)
+        ctx = {
+            "pred_img": out["rendered_image"],
+            "gt_img": batch.gt_image,
+            "pred_depth": out["rendered_depth"],
+            "gt_depth": batch.gt_depth,
+            "pred_normal": out["rendered_normal"],
+            "motion_mask": batch.motion_mask,
+            "rng": self.gen,
+            # the model terms read the whole dynamic store
+            "motion_coeff": params.motion_coeff,
+            "canon_xyz": gp.xyz,
+            "features_dc": gp.features_dc,
+            "pred_translation": transl,
+            "alive": d_alive,
+            "motion_table": self.motion_table(params),
+        }
+        total, loss_dict = self.loss(ctx, active)
+        leaves = tree_leaves(params) + [offset]
+        grads = torch.autograd.grad(total * loss_scale, leaves,
+                                    allow_unused=True)
+        grads = iter([torch.zeros_like(x) if g is None else g
+                      for x, g in zip(leaves, grads)])
+        g_params = tree_map(lambda _: next(grads), params)
+        aux = {
+            "radii": out["radii"],
+            "visible": out["visibility_filter"],
+            "loss_dict": {k: v.detach() for k, v in loss_dict.items()},
+            "overflow": out["overflow"],
+            "dropped": out["dropped"],
+            "num_fragments": out["num_fragments"],
+        }
+        return total.detach(), aux, (g_params, next(grads))
+
+    def apply_update(self, dyn_state: DynTrainState, g_params: DynParams,
+                     new_stats: DensifyStats, iteration) -> DynTrainState:
+        """The second half of a dynamic step: one Adam over every dynamic
+        leaf (gated by the pose-first warmup), and `new_stats`."""
+        cfg = self.cfg
+        gate = scene_lr_gate(cfg, iteration)
+        new_params, new_opt = adam_update(
+            g_params, dyn_state.opt, self.params_of(dyn_state),
+            self.lr_tree(iteration),
+            update_gate=gate if cfg.scene_lr_delay > 0 else None)
+        return dyn_state._replace(
+            store=dyn_state.store._replace(params=new_params.gauss),
+            motion_coeff=new_params.motion_coeff, net=new_params.net,
+            opt=new_opt, stats=new_stats)
+
     def densify(self, state: DynTrainState, max_screen_size):
-        """One densification pass over `state`; returns (state, info)."""
+        """One densification pass over `state`; returns (state, info). On a
+        mesh each gauss shard densifies its slice and `info` is summed."""
+        if self.mesh is not None:
+            return self._sharded_densify(state, max_screen_size)
+        return self.densify_block(state, max_screen_size)
+
+    def densify_block(self, state: DynTrainState, max_screen_size):
+        """Densification of the slots `state` holds."""
         cfg = self.cfg
         aux = {
             "mu_params": state.opt.mu.gauss,
@@ -142,7 +275,7 @@ class DynTrainer:
             "nu_coeff": state.opt.nu.motion_coeff,
         }
         new_store, new_aux, new_stats, info = densify_and_prune(
-            state.store, aux, state.stats, self.gen,
+            state.store, aux, state.stats, self.densify_gen,
             max_grad=cfg.densify_grad_threshold,
             min_opacity=0.005,
             extent=self.spatial_lr_scale,

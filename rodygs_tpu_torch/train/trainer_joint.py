@@ -19,6 +19,13 @@ package's. The port stores its `torch.Generator` states under
 `torch_generators` and also writes the uint32 [2] `rng_key` the JAX loader
 wraps (the key data of `jax.random.key(seed)` of the static generator's
 seed). A resume across packages carries the state, not the random draws.
+
+Multi-device (`mesh=`, the trainers built on the same mesh): the dynamic
+step is parallel/sharded.py's, on the stacked batches. One process
+writes: checkpoints and resume files hold the global arrays (the gauss
+blocks gathered on every rank, the primary writes, then every rank meets
+at a barrier), so they are the single-device files both packages read;
+`load_resume` waits for the file and each rank takes its own block.
 """
 
 from __future__ import annotations
@@ -30,14 +37,13 @@ import numpy as np
 import torch
 
 from ..models import gaussians as G
-from ..render.rasterize import render
+from ..parallel.multihost import barrier, is_primary, wait_for_path
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from .densify import accumulate_stats
-from .optim import CameraPoses, adam_update, tree_leaves, tree_map
-from .trainer_dynamic import DynParams, DynTrainer, DynTrainState
+from .optim import CameraPoses
+from .trainer_dynamic import DynTrainer, DynTrainState
 from .trainer_static import (EscalationPoller, FrameBatch, ThreeDGSTrainer,
-                             densify_due, make_camera_from_poses,
-                             scene_lr_gate, screen_size_threshold)
+                             densify_due, screen_size_threshold)
 
 
 class RoDyGSTrainer:
@@ -46,7 +52,9 @@ class RoDyGSTrainer:
                  sh_up_start_iteration: int = 0,
                  sh_up_period: int = 1000,
                  log_freq: int = 50,
-                 logdir: str | Path | None = None):
+                 logdir: str | Path | None = None,
+                 mesh=None):
+        self.mesh = mesh
         self.static = static_trainer
         self.dynamic = dynamic_trainer
         self.skip_dynamic = dynamic_trainer is None
@@ -57,87 +65,36 @@ class RoDyGSTrainer:
         if not self.skip_dynamic:
             self.dyn_fragment_profile: str | int = "lean"
             self._dyn_escalation = EscalationPoller()
+            if mesh is not None:
+                from ..parallel.sharded import make_sharded_dynamic_step
+
+                self._sharded_dyn_step = make_sharded_dynamic_step(
+                    self.dynamic, mesh)
 
     def dyn_step(self, dyn_state: DynTrainState, static_store: G.GaussianStore,
                  poses: CameraPoses, batch: FrameBatch, iteration,
                  active, sh_degree: int, use_deform: bool,
                  fragment_profile="lean"):
-        """One dynamic step from `dyn_state`; returns (new_state, metrics)."""
+        """One dynamic step from `dyn_state`; returns (new_state, metrics).
+        On a mesh `static_store` is this rank's block and `batch` stacked."""
+        if self.mesh is not None:
+            return self._sharded_dyn_step(
+                dyn_state, static_store, poses, batch, iteration, active,
+                sh_degree, use_deform, fragment_profile)
         dyn = self.dynamic
-        cfg = dyn.cfg
-        sp = static_store.params
         cs = G.capacity_of(static_store)
-        cd = G.capacity_of(dyn_state.store)
-        old = DynParams(gauss=dyn_state.store.params,
-                        motion_coeff=dyn_state.motion_coeff, net=dyn_state.net)
-        params = tree_map(lambda x: x.detach().requires_grad_(True), old)
-        offset = torch.zeros((2, cs + cd), device=dyn.device,
-                             requires_grad=True)
-        gp = params.gauss
-        if use_deform:
-            transl, rot_delta = dyn.deformation(
-                params, batch.time, dyn_state.store.time_ind)
-        else:
-            transl = torch.zeros_like(gp.xyz)
-            rot_delta = torch.zeros((cd, 4), device=dyn.device)
-        d_alive = dyn_state.store.alive
-        dyn_rot = G.get_rotation(gp)
-        if not cfg.isotropic:
-            dyn_rot = dyn_rot + rot_delta
-        out = render(
-            torch.cat([sp.xyz.detach(), gp.xyz + transl]),
-            torch.cat([G.get_features(sp).detach(), G.get_features(gp)]),
-            torch.cat([G.get_opacity(sp).detach(), G.get_opacity(gp)]),
-            torch.cat([G.get_scaling(sp, cfg.isotropic).detach(),
-                       G.get_scaling(gp, cfg.isotropic)]),
-            torch.cat([G.get_rotation(sp).detach(), dyn_rot]),
-            make_camera_from_poses(CameraPoses(*[p.detach() for p in poses]),
-                                   batch),
-            sh_degree, cfg.image_width, cfg.image_height,
-            alive=torch.cat([static_store.alive, d_alive]),
-            means2d_offset=offset, max_fragments=cfg.max_fragments,
-            fragment_profile=fragment_profile,
-            include_normal=dyn.loss.uses_normal)
-        ctx = {
-            "pred_img": out["rendered_image"],
-            "gt_img": batch.gt_image,
-            "pred_depth": out["rendered_depth"],
-            "gt_depth": batch.gt_depth,
-            "pred_normal": out["rendered_normal"],
-            "motion_mask": batch.motion_mask,
-            "rng": dyn.gen,
-            # the model terms read the dynamic slice
-            "motion_coeff": params.motion_coeff,
-            "canon_xyz": gp.xyz,
-            "features_dc": gp.features_dc,
-            "pred_translation": transl,
-            "alive": d_alive,
-            "motion_table": dyn.motion_table(params),
-        }
-        total, loss_dict = dyn.loss(ctx, active)
-        leaves = tree_leaves(params) + [offset]
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        grads = iter([torch.zeros_like(x) if g is None else g
-                      for x, g in zip(leaves, grads)])
-        g_params = tree_map(lambda _: next(grads), params)
-        g_offset = next(grads)
-
-        gate = scene_lr_gate(cfg, iteration)
-        new_params, new_opt = adam_update(
-            g_params, dyn_state.opt, old, dyn.lr_tree(iteration),
-            update_gate=gate if cfg.scene_lr_delay > 0 else None)
+        total, aux, (g_params, g_offset) = dyn.loss_and_grads(
+            dyn_state, static_store, poses, batch, active, sh_degree,
+            use_deform, fragment_profile)
+        # only the dynamic slice of the screen gradients feeds its stats
         new_stats = accumulate_stats(
             dyn_state.stats, g_offset[:, cs:],
-            out["radii"][cs:].to(torch.float32),
-            out["visibility_filter"][cs:])
-        new_state = dyn_state._replace(
-            store=dyn_state.store._replace(params=new_params.gauss),
-            motion_coeff=new_params.motion_coeff, net=new_params.net,
-            opt=new_opt, stats=new_stats)
-        metrics = {"loss": total.detach(), "overflow": out["overflow"],
-                   "dropped": out["dropped"],
-                   "num_fragments": out["num_fragments"],
-                   **{k: v.detach() for k, v in loss_dict.items()}}
+            aux["radii"][cs:].to(torch.float32), aux["visible"][cs:])
+        new_state = dyn.apply_update(dyn_state, g_params, new_stats, iteration)
+        metrics = {"loss": total, "overflow": aux["overflow"],
+                   "dropped": aux["dropped"],
+                   "num_fragments": aux["num_fragments"],
+                   **aux["loss_dict"]}
         return new_state, metrics
 
     def train_iteration(self, static_batch: FrameBatch,
@@ -154,8 +111,7 @@ class RoDyGSTrainer:
             st.loss.active_set(iteration), st.active_sh_degree,
             st.fragment_profile)
         metrics["static"] = m_static
-        wider = st._escalation.poll(iteration, m_static,
-                                    G.capacity_of(st.state.store),
+        wider = st._escalation.poll(iteration, m_static, st.capacity(),
                                     st.fragment_profile)
         if wider is not None:
             st.fragment_profile = wider
@@ -177,7 +133,7 @@ class RoDyGSTrainer:
             # sized against the combined store
             wider = self._dyn_escalation.poll(
                 iteration, m_dyn,
-                G.capacity_of(st.state.store) + G.capacity_of(dyn.state.store),
+                st.capacity() + G.capacity_of(dyn.state.store),
                 self.dyn_fragment_profile)
             if wider is not None:
                 self.dyn_fragment_profile = wider
@@ -190,25 +146,49 @@ class RoDyGSTrainer:
         """Write `static_last.ckpt` and (with a dynamic model)
         `dynamic_last.ckpt` under `logdir`, in the JAX package's checkpoint
         format (utils/checkpoint.py): either package's evaluator reads
-        them. One process writes; there is no barrier."""
+        them. Every process calls it; the primary writes, then all meet at
+        a barrier."""
         if self.logdir is None:
             raise ValueError("save_checkpoints needs the trainer's logdir")
-        save_checkpoint(self.logdir / "static_last.ckpt",
-                        self.static.state_dict(iteration), iteration)
-        if not self.skip_dynamic:
-            save_checkpoint(self.logdir / "dynamic_last.ckpt",
-                            self.dynamic.state_dict(iteration), iteration)
+        static_sd = self.static.state_dict(iteration)
+        if is_primary():
+            self.logdir.mkdir(parents=True, exist_ok=True)
+            save_checkpoint(self.logdir / "static_last.ckpt", static_sd,
+                            iteration)
+            if not self.skip_dynamic:
+                save_checkpoint(self.logdir / "dynamic_last.ckpt",
+                                self.dynamic.state_dict(iteration), iteration)
+        barrier("rodygs_ckpt")
 
     # --- mid-training resume ----------------------------------------------
 
+    def _densify_gens(self) -> dict:
+        """The per-gauss-shard split generators' states, by shard (a
+        collective on a mesh with a gauss axis)."""
+        import torch.distributed as dist
+
+        trainers = {"static": self.static}
+        if not self.skip_dynamic:
+            trainers["dynamic"] = self.dynamic
+        mine = {k: t.densify_gen.get_state().numpy()
+                for k, t in trainers.items()}
+        if self.mesh is None or self.mesh.shape["gauss"] == 1:
+            return {}
+        every = [None] * self.mesh.world_size
+        dist.all_gather_object(every, (self.mesh.coords["gauss"], mine))
+        return {f"{k}_densify": [dict(every)[g][k]
+                                 for g in range(self.mesh.shape["gauss"])]
+                for k in trainers}
+
     def save_resume(self, path, iteration: int) -> None:
-        """Write the trainers' whole state after `iteration`."""
+        """Write the trainers' whole state after `iteration` (every process
+        calls it; the primary writes, then all meet at a barrier)."""
         gens = {"static": self.static.gen}
         payload = {
             "iteration": iteration,
             "rng_key": np.array(
                 [0, self.static.gen.initial_seed() & 0xFFFFFFFF], np.uint32),
-            "static": {"state": self.static.state,
+            "static": {"state": self.static.global_state(),
                        "sh": self.static.active_sh_degree},
         }
         if not self.skip_dynamic:
@@ -219,20 +199,35 @@ class RoDyGSTrainer:
                 "unique_times": self.dynamic.unique_times}
         payload["torch_generators"] = {
             k: g.get_state().numpy() for k, g in gens.items()}
-        save_checkpoint(path, payload, iteration)
+        payload["torch_generators"].update(self._densify_gens())
+        if is_primary():
+            save_checkpoint(path, payload, iteration)
+        barrier("rodygs_ckpt")
 
     def load_resume(self, path) -> int:
         """Restore the trainers' state from a resume file written by either
         package; returns the next iteration. The generators are restored
         from a file of the port's; a JAX-written file leaves them as they
-        are."""
+        are. On a mesh every process calls it, after the writer's barrier
+        (`broadcast_flag` the decision when it rests on a filesystem
+        check); each rank keeps its own gauss block."""
+        wait_for_path(path)
         payload, iteration = load_checkpoint(path)
         st = self.static
         st.state = _restore(st.state, payload["static"]["state"])
+        if self.mesh is not None:
+            from ..parallel.sharded import static_state_block
+
+            st.state = static_state_block(st.state, self.mesh)
         st.active_sh_degree = int(payload["static"]["sh"])
         gens = payload.get("torch_generators", {})
         if "static" in gens:
             st.gen.set_state(torch.from_numpy(np.array(gens["static"])))
+        g = 0 if self.mesh is None else self.mesh.coords["gauss"]
+        for name, trainer in (("static", st), ("dynamic", self.dynamic)):
+            if f"{name}_densify" in gens:
+                trainer.densify_gen.set_state(torch.from_numpy(
+                    np.array(gens[f"{name}_densify"][g])))
         if not self.skip_dynamic and "dynamic" in payload:
             dyn = self.dynamic
             dyn.state = _restore(dyn.state, payload["dynamic"]["state"])

@@ -15,6 +15,15 @@ next render.
 
 Randomness (the local Pearson boxes, the split samples) comes from one
 `torch.Generator` per trainer on its device, seeded by the caller.
+
+Multi-device (`mesh=`, parallel/mesh.py): the step and densification are
+parallel/sharded.py's; the batch is stacked over the data axis
+(`sharded.stack_batches`). With a gauss axis the store is interleaved
+(`G.shard_interleave`) and this rank keeps only its capacity block of the
+store, the Adam moments and the statistics; `capacity()` is the global
+capacity, `global_state()` gathers the blocks (a collective: every rank
+calls it), and the split samples come from a generator seeded per gauss
+shard, while the loss's draws stay identical on every rank.
 """
 
 from __future__ import annotations
@@ -157,6 +166,95 @@ def screen_size_threshold(cfg: StaticTrainerConfig, iteration: int):
     return 20.0 if iteration > cfg.opacity_reset_interval else None
 
 
+def static_loss_and_grads(cfg: StaticTrainerConfig, loss: MultiLoss,
+                          gen: torch.Generator, state: StaticTrainState,
+                          batch: FrameBatch, active, sh_degree: int,
+                          fragment_profile="lean", tile_axis=None,
+                          gauss_axis=None, loss_scale: float = 1.0):
+    """The first half of a static step: the loss, aux outputs and the
+    gradients (params, poses, `means2d` offset) of one view. On a mesh
+    (parallel/sharded.py) `state` is this rank's gauss block, the render
+    splits over `tile_axis` / `gauss_axis`, `radii` / `visible` cover the
+    gathered set, and the differentiated loss is `total * loss_scale`."""
+    params = type(state.store.params)(
+        *[p.detach().requires_grad_(True) for p in state.store.params])
+    poses = CameraPoses(*[p.detach().requires_grad_(True)
+                          for p in state.poses])
+    alive = state.store.alive
+    offset = torch.zeros((2, G.capacity_of(state.store)),
+                         device=alive.device, requires_grad=True)
+    out = render(
+        params.xyz, G.get_features(params), G.get_opacity(params),
+        G.get_scaling(params, cfg.isotropic), params.rotation,
+        make_camera_from_poses(poses, batch), sh_degree, cfg.image_width,
+        cfg.image_height, alive=alive, means2d_offset=offset,
+        max_fragments=cfg.max_fragments, fragment_profile=fragment_profile,
+        include_normal=loss.uses_normal, tile_axis=tile_axis,
+        gauss_axis=gauss_axis)
+    ctx = {
+        "pred_img": out["rendered_image"],
+        "gt_img": batch.gt_image,
+        "pred_depth": out["rendered_depth"],
+        "gt_depth": batch.gt_depth,
+        "pred_normal": out["rendered_normal"],
+        "motion_mask": batch.motion_mask,
+        "alive": alive,
+        "rng": gen,
+    }
+    total, loss_dict = loss(ctx, active)
+    leaves = [*params, *poses, offset]
+    grads = torch.autograd.grad(total * loss_scale, leaves, allow_unused=True)
+    grads = [torch.zeros_like(x) if g is None else g
+             for x, g in zip(leaves, grads)]
+    n_p = len(params)
+    g_params = type(params)(*grads[:n_p])
+    g_poses = CameraPoses(*grads[n_p:n_p + 2])
+    aux = {
+        "radii": out["radii"],
+        "visible": out["visibility_filter"],
+        "loss_dict": {k: v.detach() for k, v in loss_dict.items()},
+        "overflow": out["overflow"],
+        "dropped": out["dropped"],
+        "num_fragments": out["num_fragments"],
+    }
+    return total.detach(), aux, (g_params, g_poses, grads[-1])
+
+
+def apply_static_update(cfg: StaticTrainerConfig, spatial_lr_scale: float,
+                        state: StaticTrainState, g_params, g_poses,
+                        new_stats: DensifyStats, iteration,
+                        frame_idx) -> StaticTrainState:
+    """The second half of a static step: Adam for the Gaussians and the
+    poses (with `camera_sparse_adam` only the rows of `frame_idx`, an int
+    or a stacked batch's tuple, advance, so round-robin frames step like an
+    independent Adam per camera) and `new_stats`, except while the
+    pose-first warmup freezes the scene (frozen-scene statistics would
+    bias the first densification)."""
+    gate = scene_lr_gate(cfg, iteration)
+    new_params, new_opt = adam_update(
+        g_params, state.opt, state.store.params,
+        _param_lr_tree(cfg, iteration, spatial_lr_scale),
+        update_gate=gate if cfg.scene_lr_delay > 0 else None)
+    cam_lrs = camera_lr_tree(
+        iteration, cfg.camera_rotation_lr, cfg.camera_translation_lr,
+        cfg.camera_lr_warmup, cfg.camera_total_steps)
+    if cfg.camera_sparse_adam:
+        q = state.poses.q_c2w
+        row_mask = torch.zeros((q.shape[0],), dtype=torch.bool,
+                               device=q.device)
+        row_mask[torch.as_tensor(frame_idx, device=q.device)] = True
+        new_poses, new_cam_opt = sparse_row_adam_update(
+            g_poses, state.cam_opt, state.poses, cam_lrs, row_mask)
+    else:
+        new_poses, new_cam_opt = adam_update(
+            g_poses, state.cam_opt, state.poses, cam_lrs)
+    if cfg.scene_lr_delay > 0 and gate == 0.0:
+        new_stats = state.stats
+    return StaticTrainState(
+        store=state.store._replace(params=new_params), opt=new_opt,
+        stats=new_stats, poses=new_poses, cam_opt=new_cam_opt)
+
+
 class EscalationPoller:
     """Demand-driven fragment-capacity escalation and shrinking with
     deferred host reads; the logic is the JAX package's, unchanged (see its
@@ -244,8 +342,11 @@ class ThreeDGSTrainer:
 
     def __init__(self, cfg: StaticTrainerConfig, loss: MultiLoss,
                  store: G.GaussianStore, poses: CameraPoses,
-                 spatial_lr_scale: float, device=None, seed: int = 0):
-        self.device = resolve_device(device)
+                 spatial_lr_scale: float, device=None, seed: int = 0,
+                 mesh=None):
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     else device)
         self.cfg = cfg
         self.loss = loss
         self.spatial_lr_scale = float(spatial_lr_scale)
@@ -254,101 +355,67 @@ class ThreeDGSTrainer:
                                alive=store.alive.to(self.device),
                                time=store.time.to(self.device),
                                time_ind=store.time_ind.to(self.device))
+        n_gauss = 1 if mesh is None else mesh.shape["gauss"]
+        if n_gauss > 1:
+            # round-robin the alive slots so per-shard densification starts
+            # balanced (parallel/sharded.make_sharded_densify)
+            store = G.shard_interleave(store, n_gauss)
         self.state = init_static_state(store, move(poses),
                                        cfg.camera_sparse_adam)
         self.gen = torch.Generator(device=self.device).manual_seed(seed)
+        self.densify_gen = self.gen
         self.active_sh_degree = 0
         self.fragment_profile: str | int = "lean"
         self._escalation = EscalationPoller()
+        if mesh is not None:
+            from ..parallel import sharded
 
-    def render_view(self, params: G.GaussianParams, alive, poses: CameraPoses,
-                    offset, batch: FrameBatch, sh_degree: int,
-                    fragment_profile="lean"):
-        """Render one batch view from (possibly grad-requiring) tensors."""
-        cfg = self.cfg
-        camera = make_camera_from_poses(poses, batch)
-        out = render(
-            params.xyz, G.get_features(params), G.get_opacity(params),
-            G.get_scaling(params, cfg.isotropic), params.rotation, camera,
-            sh_degree, cfg.image_width, cfg.image_height,
-            alive=alive, means2d_offset=offset,
-            max_fragments=cfg.max_fragments,
-            fragment_profile=fragment_profile,
-            include_normal=self.loss.uses_normal)
-        return out, camera
+            if n_gauss > 1:
+                self.state = sharded.static_state_block(self.state, mesh)
+                self.densify_gen = torch.Generator(
+                    device=self.device).manual_seed(
+                        sharded.fold_in_seed(seed, mesh.coords["gauss"]))
+            self._sharded_step = sharded.make_sharded_static_step(
+                cfg, loss, mesh, self.spatial_lr_scale, self.gen)
+            self._sharded_densify = sharded.make_sharded_densify(
+                self.densify_block, mesh)
+
+    def capacity(self) -> int:
+        """The global capacity (every gauss block together)."""
+        n = 1 if self.mesh is None else self.mesh.shape["gauss"]
+        return G.capacity_of(self.state.store) * n
+
+    def global_state(self) -> StaticTrainState:
+        """The state in the global layout (gathers the gauss blocks: on a
+        mesh every rank must call it)."""
+        if self.mesh is None or self.mesh.shape["gauss"] == 1:
+            return self.state
+        from ..parallel.sharded import static_state_global
+
+        return static_state_global(self.state, self.mesh)
 
     def loss_and_grads(self, state: StaticTrainState, batch: FrameBatch,
                        active, sh_degree: int, fragment_profile="lean"):
         """Loss, aux outputs and the gradients (params, poses, offset)."""
-        params = type(state.store.params)(
-            *[p.detach().requires_grad_(True) for p in state.store.params])
-        poses = CameraPoses(*[p.detach().requires_grad_(True)
-                              for p in state.poses])
-        offset = torch.zeros((2, G.capacity_of(state.store)),
-                             device=self.device, requires_grad=True)
-        out, _ = self.render_view(params, state.store.alive, poses, offset,
-                                  batch, sh_degree, fragment_profile)
-        ctx = {
-            "pred_img": out["rendered_image"],
-            "gt_img": batch.gt_image,
-            "pred_depth": out["rendered_depth"],
-            "gt_depth": batch.gt_depth,
-            "pred_normal": out["rendered_normal"],
-            "motion_mask": batch.motion_mask,
-            "alive": state.store.alive,
-            "rng": self.gen,
-        }
-        total, loss_dict = self.loss(ctx, active)
-        leaves = [*params, *poses, offset]
-        grads = torch.autograd.grad(total, leaves, allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g
-                 for x, g in zip(leaves, grads)]
-        n_p = len(params)
-        g_params = type(params)(*grads[:n_p])
-        g_poses = CameraPoses(*grads[n_p:n_p + 2])
-        aux = {
-            "radii": out["radii"],
-            "visible": out["visibility_filter"],
-            "loss_dict": {k: v.detach() for k, v in loss_dict.items()},
-            "overflow": out["overflow"],
-            "dropped": out["dropped"],
-            "num_fragments": out["num_fragments"],
-        }
-        return total.detach(), aux, (g_params, g_poses, grads[-1])
+        return static_loss_and_grads(self.cfg, self.loss, self.gen, state,
+                                     batch, active, sh_degree,
+                                     fragment_profile)
 
     def step(self, state: StaticTrainState, batch: FrameBatch, iteration,
              active, sh_degree: int, fragment_profile="lean"):
-        """One full step from `state`; returns (new_state, metrics)."""
-        cfg = self.cfg
+        """One full step from `state`; returns (new_state, metrics). On a
+        mesh `batch` is the stacked batch (sharded.stack_batches)."""
+        if self.mesh is not None:
+            return self._sharded_step(state, batch, iteration, active,
+                                      sh_degree, fragment_profile)
         total, aux, (g_params, g_poses, g_offset) = self.loss_and_grads(
             state, batch, active, sh_degree, fragment_profile)
-        lr_tree = _param_lr_tree(cfg, iteration, self.spatial_lr_scale)
-        gate = scene_lr_gate(cfg, iteration)
-        new_params, new_opt = adam_update(
-            g_params, state.opt, state.store.params, lr_tree,
-            update_gate=gate if cfg.scene_lr_delay > 0 else None)
-        cam_lrs = camera_lr_tree(
-            iteration, cfg.camera_rotation_lr, cfg.camera_translation_lr,
-            cfg.camera_lr_warmup, cfg.camera_total_steps)
-        if cfg.camera_sparse_adam:
-            # only this batch's pose row advances: round-robin frames then
-            # step like an independent Adam per camera
-            n_f = state.poses.q_c2w.shape[0]
-            row_mask = torch.arange(n_f, device=self.device) == batch.frame_idx
-            new_poses, new_cam_opt = sparse_row_adam_update(
-                g_poses, state.cam_opt, state.poses, cam_lrs, row_mask)
-        else:
-            new_poses, new_cam_opt = adam_update(
-                g_poses, state.cam_opt, state.poses, cam_lrs)
         new_stats = accumulate_stats(
             state.stats, g_offset, aux["radii"].to(torch.float32),
             aux["visible"])
-        if cfg.scene_lr_delay > 0 and gate == 0.0:
-            new_stats = state.stats
-        new_state = StaticTrainState(
-            store=state.store._replace(params=new_params),
-            opt=new_opt, stats=new_stats, poses=new_poses,
-            cam_opt=new_cam_opt)
+        new_state = apply_static_update(
+            self.cfg, self.spatial_lr_scale, state, g_params, g_poses,
+            new_stats, iteration, batch.frame_idx)
         metrics = {"loss": total, "overflow": aux["overflow"],
                    "dropped": aux["dropped"],
                    "num_fragments": aux["num_fragments"],
@@ -356,11 +423,19 @@ class ThreeDGSTrainer:
         return new_state, metrics
 
     def densify(self, state: StaticTrainState, max_screen_size):
-        """One densification pass over `state`; returns (state, info)."""
+        """One densification pass over `state`; returns (state, info). On a
+        mesh each gauss block densifies its own slots and `info` is summed
+        over the gauss axis."""
+        if self.mesh is not None:
+            return self._sharded_densify(state, max_screen_size)
+        return self.densify_block(state, max_screen_size)
+
+    def densify_block(self, state: StaticTrainState, max_screen_size):
+        """Densification of the slots `state` holds (this rank's block)."""
         cfg = self.cfg
         new_store, new_aux, new_stats, info = densify_and_prune(
             state.store, {"mu_params": state.opt.mu, "nu_params": state.opt.nu},
-            state.stats, self.gen,
+            state.stats, self.densify_gen,
             max_grad=cfg.densify_grad_threshold,
             min_opacity=0.005,
             extent=self.spatial_lr_scale,
@@ -387,8 +462,7 @@ class ThreeDGSTrainer:
             self.state, batch, float(iteration), active,
             self.active_sh_degree, self.fragment_profile)
         wider = self._escalation.poll(
-            iteration, metrics, G.capacity_of(self.state.store),
-            self.fragment_profile)
+            iteration, metrics, self.capacity(), self.fragment_profile)
         if wider is not None:
             self.fragment_profile = wider
         cfg = self.cfg
@@ -407,8 +481,9 @@ class ThreeDGSTrainer:
         return metrics
 
     def state_dict(self, iteration: int) -> dict[str, Any]:
-        """Checkpoint payload in the JAX package's layout."""
-        st = self.state
+        """Checkpoint payload in the JAX package's layout (global arrays:
+        on a mesh every rank must call it)."""
+        st = self.global_state()
         return {
             "iteration": iteration,
             "active_sh_degree": self.active_sh_degree,

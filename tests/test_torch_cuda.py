@@ -32,6 +32,17 @@ def scene(n=1500, seed=3, opacity=(0.2, 0.95), device="cpu"):
     return KC.random_scene(n, seed, device, opacity=opacity)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """torch on one thread: the CPU suite runs several worker processes on
+    the same cores, where torch's OpenMP barriers wait on descheduled
+    threads (the plain tile versions here took minutes under that load)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -51,6 +62,40 @@ def test_kernel_check_runs_on_plain_versions(tight):
     errs = KC.check_stages(s)
     assert errs == {"expand": 0.0, "tile_fwd": 0.0, "tile_bwd": 0.0,
                     "segsum": 0.0}
+
+
+def test_tile_splits_on_plain_versions():
+    """A render composited in 2, 3 and 8 tile blocks at their offsets (the
+    ranks of a tile axis) equals the whole grid, and each block's share of
+    the four kernels passes against the plain versions."""
+    params, cam = scene(n=400)
+    s = KC.capture_stages(params, None, cam, 3, SIZE, 48, "lean", True, 1)
+    errs = KC.check_tile_splits(s, (2, 3, 8))
+    assert max(errs.values()) <= KC.TOL_SPLIT_SCALED
+    for i in range(3):
+        assert KC.check_tile_block(s, 3, i) == {
+            "tile_fwd": 0.0, "tile_bwd": 0.0, "expand": 0.0, "segsum": 0.0}
+
+
+def _nccl_mesh_rank(rank):
+    from rodygs_tpu_torch.parallel.mesh import make_mesh
+
+    try:
+        make_mesh(n_data=2)
+    except ValueError as e:
+        return str(e)
+    return None
+
+
+def test_nccl_refuses_ranks_sharing_a_card(cuda_device):
+    """Two NCCL ranks on one card: the mesh raises before any NCCL
+    communicator exists, naming the backend variable."""
+    from rodygs_tpu_torch.parallel.dryrun import run_world
+
+    if torch.cuda.device_count() > 1:
+        pytest.skip("needs ranks that share one card")
+    out = run_world(_nccl_mesh_rank, 2, backend="nccl", timeout_s=180.0)
+    assert all(m and "RODYGS_DIST_BACKEND" in m for m in out), out
 
 
 def test_needed_pairs_counts_early_stops():

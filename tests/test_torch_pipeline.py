@@ -407,7 +407,8 @@ def test_clis_need_a_card_or_the_cpu_asked_for(scene_dir, tmp_path,  # noqa: F81
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         teval_cli.main(["-c", "x.yaml", "-d", str(scene_dir), "-m",
                         str(tmp_path)])
-    with pytest.raises(SystemExit, match="queue item 4"):
+    # a mesh larger than the process world is refused before any output
+    with pytest.raises(ValueError, match="mesh 2x1x1 != 1 processes"):
         ttrain_cli.main(args + ["--device", "cpu", "--mesh", "data=2"])
     assert not (tmp_path / "default").exists()
 
