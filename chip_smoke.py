@@ -183,13 +183,39 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
                snapshot every 50, then `--resume` to 150; train.log and
                train.p1.log, one writer's files, and the single-process
                port loads resume.ckpt.
- 10. report  — the card's name and power limit (nvidia-smi), one JSON line
+ 10. flagship — `rodygs_tpu_torch/tools/flagship_1080p.py`'s functions
+               at the tool's full size: 1920x1080, 120,000 static + 120,000
+               dynamic gaussians in stores of 262,144 slots, 12 frames,
+               motion masks, pose noise 0.5 deg / 0.025 with the
+               pre-alignment ladder cut to 25 steps a level, 300 joint
+               iterations (both models densify at 100, 200 and 300), the
+               held-out view's `eval_w_align` cut to 200 steps
+               (FLAGSHIP_ARGS). Launch counters are zeroed just before the
+               tool's `train` and read just after it, and must equal two
+               tile_fwd / tile_bwd launches an iteration and one expand /
+               segsum launch a sort band of each render. Requires finite
+               window losses, a static one that falls from the first
+               window to the last, no drop at the end nor in either PSNR
+               render, the held-out view's L2 falling over the alignment;
+               prints every escalation, the ATE before and after, the
+               PSNRs and what they drop at the trainer's profile, the peak
+               memory and the tool's result JSON line. Then the four
+               kernels against their plain versions on frame 0's
+               concatenated 1080p render of the end state, each kernel's
+               device time and bound on that render, torch.profiler
+               over iterations 304-306 (305 a rigidity iteration: the
+               `motion_mlp` / `rigidity_knn` ranges, each kernel's device
+               time a launch) and one densification call of each model.
+ 11. report  — the card's name and power limit (nvidia-smi), one JSON line
                of per-kernel numbers (`launches_joint`: launches in phase 6;
                `launches_eval`: inside the two eval() calls of phase 7;
                `launches_bands`: in its three banded renders;
                `launches_cli`: in each CLI of phase 8; `launches_multi`:
                each rank's launches in phase 9c; `launches_torchrun`: each
-               rank's in phase 9d's first run), and last
+               rank's in phase 9d's first run; `launches_flagship`: in
+               phase 10's training; `flagship`: ms and bound_ms on phase
+               10's frame-0 render, train_ms_per_launch in its profile),
+               and last
                {"ok": true, "device": ...}. The tile kernels' rows carry
                `launches_legacy` (one legacy render of phase 5a),
                `launches_variants` (its four variant renders) and
@@ -375,6 +401,62 @@ def rejected_ops(contrib, rejected, warp_pairs):
     return counts[walk]
 
 
+def fragment_bounds(s, st):
+    """expand's and segsum's bounds on one captured render (`st`: its
+    `kernel_check.slot_stats`): ({"expand": (ms, by), "segsum": (ms, by)},
+    the table words expand must read, expand's bound by the older count
+    (every slot's 13 rows and the whole table)). expand: the key of every
+    slot, the emitted record rows of the filled slots, and of the columns
+    that own a filled slot the record rows, the four aux rows and, in rows
+    mode, the mode flag and for a row-mode column its 16 span words.
+    segsum: the summed rows of the filled slots, the offsets row, the
+    output."""
+    import torch
+    from rodygs_tpu_torch.render import compact as C
+
+    tab, bases = s["table"], s["cb"].bases
+    n_rows, nw = s["d_presort"].shape[0], tab.shape[1]
+    cap, n_kept = st["capacity"], st["f_kept"]
+    rows_mode = tab.shape[0] >= C.NUM_TABLE_ROWS_RMODE
+    owning = torch.diff(torch.clamp(tab[C.ROW_OFF], max=float(n_kept)),
+                        append=tab.new_tensor([float(n_kept)])) > 0
+    col_words = (n_rows + 4) * st["owning_columns"]
+    if rows_mode:
+        col_words += st["owning_columns"] + 2 * C.ROW_SPAN_MAX * int(
+            (owning & (tab[C.ROW_RMODE] > 0.5)).sum())
+    b_all, _ = bound(tab.numel() * 4 + bases.numel() * 4 + cap * 4 * 14, 0)
+    return ({"expand": bound(4 * (cap + n_rows * n_kept + col_words
+                                  + st["filled_chunks"] + 1), 0),
+             "segsum": bound(n_rows * n_kept * 4 + nw * 4 + n_rows * nw * 4,
+                             n_rows * n_kept)},
+            col_words, b_all)
+
+
+def kernel_calls(s):
+    """{kernel: a call of it on one captured render}, the calls the time
+    phase and the flagship phase time."""
+    from rodygs_tpu_torch.render import compact as C
+    from rodygs_tpu_torch.render import tile_kernel as TK
+
+    cb = s["cb"]
+    tab, bases, fk, d = s["table"], cb.bases, cb.f_kept, s["d_presort"]
+    args = (s["records"], cb.tile_starts, cb.tile_counts, s["off"])
+    normals = s["include_normal"]
+    return {
+        "expand": lambda: C.expand_fragments(tab, bases, fk, s["tx"],
+                                             s["db"], d.shape[0]),
+        "segsum": lambda: C.segment_sum_rows(d, tab, bases, fk),
+        "tile_fwd": lambda: TK.rasterize_fwd_impl(*args, s["tx"], normals),
+        "tile_bwd": lambda: TK.rasterize_bwd_impl(*args, s["out"], s["gout"],
+                                                  s["tx"], normals)}
+
+
+# the warm timer of each kernel's `ms`: the fragment kernels take a few
+# microseconds, so host work must not lie between their launches
+WARM_TIMER = {"expand": graph_ms, "segsum": graph_ms, "tile_fwd": time_ms,
+              "tile_bwd": time_ms}
+
+
 def time_fragment_kernels(s, tag):
     """expand and segsum on one captured render: {kernel: dict(ms (warm),
     cold_ms, plain_ms, library_ms, library_cold_ms, bound_ms, bound_by)}.
@@ -404,23 +486,15 @@ def time_fragment_kernels(s, tag):
         f"{100 * st['share_over_32']:.2f}%, > 512: "
         f"{100 * st['share_over_512']:.2f}%; ranges crossing a chunk edge "
         f"{st['cross_chunk']}")
-    rows_mode = tab.shape[0] >= C.NUM_TABLE_ROWS_RMODE
-    owning = torch.diff(torch.clamp(tab[C.ROW_OFF], max=float(n_kept)),
-                        append=tab.new_tensor([float(n_kept)])) > 0
-    col_words = (n_rows + 4) * st["owning_columns"]
-    if rows_mode:
-        col_words += st["owning_columns"] + 2 * C.ROW_SPAN_MAX * int(
-            (owning & (tab[C.ROW_RMODE] > 0.5)).sum())
+    bounds, col_words, b_all = fragment_bounds(s, st)
+    calls = kernel_calls(s)
     res = {}
 
     def both(fn):
         return graph_ms(fn), cold_ms(fn)
 
-    b, by = bound(4 * (cap + n_rows * n_kept + col_words
-                       + st["filled_chunks"] + 1), 0)
-    b_all, _ = bound(tab.numel() * 4 + bases.numel() * 4 + cap * 4 * 14, 0)
-    warm, cold = both(lambda: C.expand_fragments(tab, bases, fk, s["tx"],
-                                                 s["db"], n_rows))
+    b, by = bounds["expand"]
+    warm, cold = both(calls["expand"])
     res["expand"] = dict(
         ms=warm, cold_ms=cold,
         plain_ms=time_ms(lambda: C.expand_fragments_plain(
@@ -436,9 +510,8 @@ def time_fragment_kernels(s, tag):
     owner = torch.searchsorted(
         tab[C.ROW_OFF], torch.arange(n_kept, device=d.device,
                                      dtype=torch.float32), right=True) - 1
-    b, by = bound(n_rows * n_kept * 4 + nw * 4 + n_rows * nw * 4,
-                  n_rows * n_kept)
-    warm, cold = both(lambda: C.segment_sum_rows(d, tab, bases, fk))
+    b, by = bounds["segsum"]
+    warm, cold = both(calls["segsum"])
     lib = lambda: torch.zeros((n_rows, nw), device=d.device).index_add_(
         1, owner, d_kept)
     lib_warm, lib_cold = both(lib)
@@ -467,11 +540,41 @@ def launch_floors():
         f"{cold_ms(lambda: None):.4f} ms")
 
 
+def tile_bounds(s):
+    """The tile kernels' bounds on one captured render: ({"tile_fwd": (ms,
+    by), "tile_bwd": (ms, by)}, contributing pairs, rejected pairs,
+    `kernel_check.walk_stats`). The compositors read the used rows of the
+    fragments in tile ranges (6 geometry rows and the live feature rows;
+    the alpha feature is a constant without normals); the forward writes
+    all 8 planes; the backward reads the live planes of O and g and writes
+    all 16 rows of d_records."""
+    from rodygs_tpu_torch import kernel_check as KC
+    from rodygs_tpu_torch.render import tile_kernel as TK
+
+    cb = s["cb"]
+    normals = s["include_normal"]
+    num_tiles = cb.tile_starts.shape[0]
+    plane_bytes = num_tiles * TK.PIX * 4
+    n_live = 8 if normals else 5
+    rec_bytes = ((14 if normals else 10) * int(cb.tile_counts.sum()) * 4
+                 + num_tiles * 8)
+    contrib, rejected = KC.needed_pairs(s)
+    stats = KC.walk_stats(s)
+    ops_rejected = rejected_ops(contrib, rejected, stats["warp_pairs"])
+    return ({"tile_fwd": bound(rec_bytes + 8 * plane_bytes,
+                               FWD_OPS_PER_CONTRIB[normals] * contrib
+                               + ops_rejected),
+             "tile_bwd": bound(rec_bytes + 2 * n_live * plane_bytes
+                               + 16 * s["records"].shape[1] * 4,
+                               BWD_OPS_PER_CONTRIB[normals] * contrib
+                               + ops_rejected)},
+            contrib, rejected, stats)
+
+
 def time_kernels(s):
     """{kernel: dict(ms, plain_ms, library_ms, bound_ms, bound_by)}; the
     fragment kernels also cold_ms and library_cold_ms."""
     import torch
-    from rodygs_tpu_torch import kernel_check as KC
     from rodygs_tpu_torch.render import compact as C
     from rodygs_tpu_torch.render import tile_kernel as TK
 
@@ -482,33 +585,20 @@ def time_kernels(s):
     normals = s["include_normal"]
     p_cols = s["records"].shape[1]
     num_tiles = cb.tile_starts.shape[0]
-    plane_bytes = num_tiles * TK.PIX * 4
-    # the compositors read the used rows of the fragments in tile ranges:
-    # 6 geometry rows and the live feature rows (the alpha feature is a
-    # constant without normals)
-    n_live = 8 if normals else 5
-    rec_bytes = ((14 if normals else 10) * int(cb.tile_counts.sum()) * 4
-                 + num_tiles * 8)
-    contrib, rejected = KC.needed_pairs(s)
-    stats = KC.walk_stats(s)
-    ops_rejected = rejected_ops(contrib, rejected, stats["warp_pairs"])
+    bounds, contrib, rejected, stats = tile_bounds(s)
+    calls = kernel_calls(s)
     launch_floors()
     res = time_fragment_kernels(s, "time")
 
-    # forward: all 8 planes are written; backward: the live planes of O and
-    # g are read and all 16 rows of d_records written
-    b, by = bound(rec_bytes + 8 * plane_bytes,
-                  FWD_OPS_PER_CONTRIB[normals] * contrib + ops_rejected)
+    b, by = bounds["tile_fwd"]
     res["tile_fwd"] = dict(
-        ms=time_ms(lambda: TK.rasterize_fwd_impl(*args, s["tx"], normals)),
+        ms=time_ms(calls["tile_fwd"]),
         plain_ms=time_ms(lambda: TK.rasterize_fwd_plain(*args, s["tx"],
                                                         normals), reps=2),
         library_ms=None, bound_ms=b, bound_by=by)
-    b, by = bound(rec_bytes + 2 * n_live * plane_bytes + 16 * p_cols * 4,
-                  BWD_OPS_PER_CONTRIB[normals] * contrib + ops_rejected)
+    b, by = bounds["tile_bwd"]
     res["tile_bwd"] = dict(
-        ms=time_ms(lambda: TK.rasterize_bwd_impl(*args, s["out"], s["gout"],
-                                                 s["tx"], normals)),
+        ms=time_ms(calls["tile_bwd"]),
         plain_ms=time_ms(lambda: TK.rasterize_bwd_plain(
             *args, s["out"], s["gout"], s["tx"], normals), reps=2),
         library_ms=None, bound_ms=b, bound_by=by)
@@ -1439,7 +1529,7 @@ def check_concatenated(joint, batch, width, height, tag, seed):
     """The four kernels against their plain versions on the render the
     joint trainer's dynamic step makes of `batch`: the static set and the
     deformed dynamic set, concatenated, at the dynamic fragment profile.
-    Returns {kernel: max_abs_err}."""
+    Returns ({kernel: max_abs_err}, the captured stages)."""
     import torch
     from rodygs_tpu_torch import kernel_check as KC
     from rodygs_tpu_torch.models import gaussians as G
@@ -1487,7 +1577,7 @@ def check_concatenated(joint, batch, width, height, tag, seed):
         f"fragments={int(cb.num_fragments)} max_abs_err={errs}; "
         + ", ".join(f"{k} max |output| {v:.6g}, error / max "
                     f"{errs[k] / v:.3g}" for k, v in scale.items()))
-    return errs
+    return errs, s
 
 
 def phase_joint(device, **scene):
@@ -1615,7 +1705,7 @@ def phase_joint(device, **scene):
 
     # the four kernels against their plain versions on the concatenated
     # static + deformed dynamic set of frame 0 (the dynamic step's input)
-    errs = check_concatenated(joint, batch_for(0), W, H, "joint", seed=4)
+    errs, _ = check_concatenated(joint, batch_for(0), W, H, "joint", seed=4)
 
     # the profiler: 5 joint iterations, one with rigidity, then one
     # densification call of each model (its result discarded)
@@ -2243,7 +2333,7 @@ def phase_cli(device):
             f"state ({len(same)} arrays equal; alive static {alive[0]}, "
             f"dynamic {alive[1]})")
         frame = back.dynamic_dm.get_train_dset()[0]
-        errs = check_concatenated(
+        errs, _ = check_concatenated(
             back.joint, make_frame_batch(frame, 0, device), CLI_SIZE,
             CLI_SIZE, "cli", seed=6)
         del back
@@ -2653,6 +2743,175 @@ def phase_multi(device, trainer, batch_for, bench_kw=None, joint_kw=None):
     return launches, cli_launches, errs
 
 
+# --------------------------------------------------------------------------
+# the flagship run
+# --------------------------------------------------------------------------
+
+# rodygs_tpu_torch/tools/flagship_1080p.py at its full size (1920x1080,
+# 120,000 static + 120,000 dynamic, 12 frames), cut in depth to fit the
+# script's time (FLAGSHIP_REDUCED)
+FLAGSHIP_ARGS = ("--iters", "300", "--log_every", "50",
+                 "--pose_noise_rot_deg", "0.5", "--pose_noise_trans", "0.025",
+                 "--pose_prealign", "--prealign_steps", "25",
+                 "--motion_masks", "--eval_w_align", "--w_align_steps", "200")
+FLAGSHIP_REDUCED = ("300 joint iterations (the tool's default 400): both "
+                    "models densify at 100, 200 and 300",
+                    "pose pre-alignment 25 steps a level (250)",
+                    "eval_w_align 200 pose steps (1000)")
+FLAGSHIP_PROFILE_ITERATIONS = (304, 306)    # 305 is a rigidity iteration
+KERNEL_EVENTS = {"expand": "expand_kernel", "tile_fwd": "tile_fwd_kernel",
+                 "tile_bwd": "tile_bwd_kernel", "segsum": "segsum_kernel"}
+
+
+def phase_flagship(device):
+    """The flagship tool's `prepare`, `train` and `finish` at 1920x1080 with
+    2 x 120,000 gaussians (FLAGSHIP_ARGS). Launch counters are zeroed just
+    before `train` and read just after it; its history holds the profiles
+    each iteration rendered at, so the expected counts are known: tile_fwd
+    and tile_bwd twice an iteration, expand and segsum once a sort band of
+    each render. Requires finite window losses and a static one that falls,
+    no drops at the end, in the GT renders (escalated until nothing
+    overflows) and in both PSNR renders (escalated from the trainer's
+    dynamic profile; the drops at that profile are printed), and the
+    alignment's L2 falling; then the four kernels against their plain
+    versions on frame 0's concatenated render of the end state, each
+    kernel's device time on that render beside its bound there, and
+    torch.profiler over 3 iterations (one with rigidity) and one
+    densification call of each model. Returns ({kernel: launches in
+    train}, {kernel: max_abs_err}, {kernel: dict(ms, bound_ms, bound_by: on
+    frame 0's render; train_ms_per_launch: the profiled iterations' mean
+    over all their renders)})."""
+    import torch
+    from rodygs_tpu_torch import kernel_check as KC
+    from rodygs_tpu_torch import kernels
+    from rodygs_tpu_torch.models import gaussians as G
+    from rodygs_tpu_torch.render.compact import split_profile
+    from rodygs_tpu_torch.tools import flagship_1080p as FT
+    from torch.profiler import ProfilerActivity, profile
+
+    t_phase = time.perf_counter()
+    args = FT.build_parser().parse_args(list(FLAGSHIP_ARGS)
+                                        + ["--device", device.type])
+    log(f"[flagship] {args.width}x{args.height}, {args.n} static + {args.n} "
+        f"dynamic gaussians; reduced from the tool's run: "
+        f"{'; '.join(FLAGSHIP_REDUCED)}")
+    prep = FT.prepare(args)
+    joint, frames = prep.joint, prep.frames
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    hist = FT.train(joint, frames, args, prep.scene, prep.pose_noise)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = dict(kernels.LAUNCHES)
+    res, ev = FT.finish(args, prep, hist)
+    W, H = args.width, args.height
+    print(json.dumps(res), flush=True)
+
+    profiles = hist["iteration_profiles"]
+    bands = sum(split_profile(p)[1] for pair in profiles for p in pair)
+    expected = {"expand": bands, "segsum": bands,
+                "tile_fwd": 2 * len(profiles), "tile_bwd": 2 * len(profiles)}
+    log(f"[flagship] train: {len(profiles)} iterations in {train_s:.2f} s, "
+        f"step_ms_median {res['step_ms_median']} "
+        f"(windows {res['window_ms']} ms), "
+        f"{res['mpix_per_s_fwd_bwd']} Mpix/s fwd+bwd; launches {launches}, "
+        f"expected {expected} ({bands} sort bands rendered)")
+    log(f"[flagship] escalations {res['escalations']}; final profiles "
+        f"{res['final_profiles']}; GT profile {ev['gt_profile']}")
+    log(f"[flagship] window mean losses [it, static, dynamic] "
+        f"{res['loss_traj']}; alive {res['alive_traj']}; RSS MB "
+        f"{res['rss_traj_mb']}")
+    pn = res["pose_noise"]
+    log(f"[flagship] ATE init {pn['init_scores']['ATE']} -> prealign "
+        f"{pn['prealign_scores']['ATE']} -> final "
+        f"{pn['final_scores']['ATE']}; trajectory {pn['ate_traj']}; prealign "
+        f"{pn['prealign']['per_view_s']} s a view, retry "
+        f"{pn['prealign']['retry']}")
+    log(f"[flagship] PSNR train {res['psnr_train_view']} held-out "
+        f"{res['psnr_holdout_view']}; eval_w_align {res['eval_w_align']}; "
+        f"dropped final {res['dropped_final']} eval {res['dropped_eval']} "
+        f"(at the trainer's dynamic profile {res['final_profiles'][1]} the "
+        f"two PSNR renders would drop "
+        f"{res['dropped_eval_at_train_profile']}; rendered at "
+        f"{ev['profiles']}); peak memory {res['peak_hbm_gb']} GiB "
+        f"(torch.cuda.max_memory_allocated); fragment demand of view 0's "
+        f"static render {res['fragment_demand_static_view0']}")
+    require(launches == expected,
+            f"flagship launches {launches} != expected {expected}")
+    losses = [v for row in res["loss_traj"] for v in row[1:]]
+    require(all(math.isfinite(v) for v in losses), "non-finite flagship loss")
+    require(res["loss_traj"][-1][1] < res["loss_traj"][0][1],
+            "the flagship static loss did not fall")
+    require(res["dropped_final"] == [0, 0] and res["dropped_eval"] == [0, 0],
+            "the flagship run still drops fragments")
+    wa = res["eval_w_align"]
+    require(wa["l2_aligned"] < wa["l2_nearest_init"],
+            "the held-out view's L2 did not fall over the alignment")
+
+    errs, s = check_concatenated(joint, FT.batch_for(frames, 0), W, H,
+                                 "flagship", seed=6)
+    # each kernel's least time at these shapes (`bound`, as the time phase
+    # counts it) and its device time on the same render
+    t0 = time.perf_counter()
+    bounds, contrib, rejected, _ = tile_bounds(s)
+    bounds.update(fragment_bounds(s, KC.slot_stats(s))[0])
+    log(f"[flagship] bounds on that render ({contrib} contributing and "
+        f"{rejected} rejected pixel-fragment pairs; counted in "
+        f"{time.perf_counter() - t0:.2f} s): " + ", ".join(
+            f"{k} {b:.4f} ms ({by})" for k, (b, by) in bounds.items()))
+    calls = kernel_calls(s)
+    on_render = {k: WARM_TIMER[k](fn) for k, fn in calls.items()}
+    del s, calls
+    for k, ms in on_render.items():
+        log(f"[flagship] {k} on that render: {ms:.4f} ms "
+            f"({WARM_TIMER[k].__name__}), {ms / bounds[k][0]:.2f}x its "
+            f"bound {bounds[k][0]:.4f} ms")
+
+    first, last = FLAGSHIP_PROFILE_ITERATIONS
+    steps = last - first + 1
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for it in range(first, last + 1):
+            b = FT.batch_for(frames, (it - 1) % FT.N_FRAMES)
+            joint.train_iteration(b, b, it)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    device_summary(prof, steps, wall_ms, "flagship profile")
+    for name in ("motion_mlp", "rigidity_knn"):
+        ms, n = range_device_ms(prof, name)
+        log(f"[flagship profile] {name}: {ms:.4f} ms of device time in {n} "
+            f"calls over iterations {first}-{last} (forward only)")
+    per_launch = {}
+    for name, key in KERNEL_EVENTS.items():
+        hits = [e for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and key in e.key]
+        n = sum(e.count for e in hits)
+        per_launch[name] = sum(dev_us(e) for e in hits) / 1e3 / max(n, 1)
+        log(f"[flagship profile] {name}: {n} launches, "
+            f"{per_launch[name]:.4f} ms of device time a launch (the mean "
+            f"over these iterations' static-only and concatenated renders)")
+    for name, trainer in (("static", joint.static), ("dynamic", joint.dynamic)):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            trainer.densify(trainer.state, None)
+            torch.cuda.synchronize()
+        ms, _ = range_device_ms(prof, "densify_and_prune")
+        log(f"[flagship profile] densify_and_prune of the {name} model "
+            f"({G.capacity_of(trainer.state.store)} slots): {ms:.4f} ms of "
+            f"device time")
+    log(f"[flagship] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
+        f" GiB allocated; phase {time.perf_counter() - t_phase:.2f} s; card "
+        f"{res['device']}")
+    return launches, errs, {k: dict(ms=on_render[k], bound_ms=bounds[k][0],
+                                    bound_by=bounds[k][1],
+                                    train_ms_per_launch=per_launch[k])
+                            for k in bounds}
+
+
 def main() -> int:
     import torch
 
@@ -2707,6 +2966,9 @@ def main() -> int:
     launches_cli, e_cli = phase_cli(device)
     launches_multi, launches_torchrun, e_multi = phase_multi(
         device, trainer, batch_for)
+    del trainer, batch_for
+    torch.cuda.empty_cache()
+    launches_flagship, e_flagship, t_flagship = phase_flagship(device)
 
     rows = []
     for name in kernels.KERNELS:
@@ -2724,11 +2986,13 @@ def main() -> int:
                      "launches_multi": [r[name] for r in launches_multi],
                      "launches_torchrun": [r[name]
                                            for r in launches_torchrun],
+                     "launches_flagship": launches_flagship[name],
+                     "flagship": t_flagship[name],
                      "max_abs_err": max(errs[name], e512[name],
                                         e_var.get(name, 0.0),
                                         e1080.get(name, 0.0), e_joint[name],
                                         e_eval[name], e_cli[name],
-                                        e_multi[name]),
+                                        e_multi[name], e_flagship[name]),
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
@@ -2751,7 +3015,8 @@ def main() -> int:
             f"{launches_bands[name]}, in the CLIs "
             f"{rows[-1]['launches_cli']}, per rank in the 4-rank world "
             f"{rows[-1]['launches_multi']}, per rank under torchrun "
-            f"{rows[-1]['launches_torchrun']}")
+            f"{rows[-1]['launches_torchrun']}, in the flagship run's "
+            f"training {launches_flagship[name]}")
 
     print(card_name_and_limit())
     print(json.dumps({"kernels": rows}))

@@ -1,7 +1,8 @@
 """Gaussian store: fixed-capacity NamedTuples of tensors with an alive mask.
 Port of `rodygs_tpu/models/gaussians.py` (fields, activations,
 `from_point_cloud`, `capacity_of`, `num_alive`, `unique_times`,
-`sh_degree_up`, `to_state_dict` / `from_state_dict`, `shard_interleave`).
+`active_arrays`, `sh_degree_up`, `to_state_dict` / `from_state_dict`,
+`shard_interleave`).
 
 Raw (pre-activation) parameters keep the JAX field names and layouts so
 state converts one-to-one (convert.py). Dead capacity slots carry zeroed
@@ -145,6 +146,14 @@ def from_point_cloud(
         time=padded(torch.tensor(t, device=dev)),
         time_ind=padded(torch.tensor(tind, device=dev)),
     )
+
+
+def active_arrays(store: GaussianStore, isotropic: bool = False):
+    """Activated tensors for the renderer: (xyz, shs, opacity, scaling,
+    rotation, alive)."""
+    p = store.params
+    return (p.xyz, get_features(p), get_opacity(p),
+            get_scaling(p, isotropic), p.rotation, store.alive)
 
 
 def sh_degree_up(active_degree: int, max_degree: int) -> int:

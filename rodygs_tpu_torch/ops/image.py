@@ -1,6 +1,6 @@
 """Image-space loss math on channels-last [H, W, C] images: L1, windowed
 SSIM, PSNR, Pearson depth correlation and Charbonnier. Port of
-`rodygs_tpu/ops/image.py` (all but `l2_loss`).
+`rodygs_tpu/ops/image.py`.
 
 SSIM uses the 11-tap sigma-1.5 separable Gaussian window with C1=0.01^2,
 C2=0.03^2, and zero-padded borders. The separable blur is two banded-matrix
@@ -19,6 +19,10 @@ import torch
 
 def l1_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return torch.mean(torch.abs(pred - gt))
+
+
+def l2_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    return torch.mean((pred - gt) ** 2)
 
 
 @functools.lru_cache(maxsize=8)

@@ -85,6 +85,12 @@ BAND_UPGRADE_MARGIN = 1.10
 # --------------------------------------------------------------------------
 
 
+def next_profile(profile: str) -> str | None:
+    """Next-wider fragment profile, or None at the top of the ladder."""
+    i = PROFILE_LADDER.index(profile)
+    return PROFILE_LADDER[i + 1] if i + 1 < len(PROFILE_LADDER) else None
+
+
 def split_profile(profile):
     """(capacity_profile, bands) from a fragment-profile knob."""
     if isinstance(profile, (tuple, list)):

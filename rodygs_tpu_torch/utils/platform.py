@@ -32,3 +32,24 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
                 "to run on the CPU explicitly")
         strict_fp32()
     return dev
+
+
+def device_label(device: torch.device) -> str:
+    """What a measurement ran on: the card's name and power limit as
+    `nvidia-smi --query-gpu=name,power.limit --format=csv,noheader` gives
+    them for a CUDA device (the name alone when nvidia-smi cannot be run),
+    "cpu" otherwise."""
+    import subprocess
+
+    if device.type != "cuda":
+        return device.type
+    index = device.index if device.index is not None else \
+        torch.cuda.current_device()
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True)
+    except (OSError, subprocess.SubprocessError):
+        return torch.cuda.get_device_name(index)
+    return smi.stdout.strip()

@@ -119,6 +119,18 @@ def test_image_losses_and_grads():
     assert_scaled(gj, x.grad.numpy())
 
 
+def test_l2_loss_and_grad():
+    rng = np.random.default_rng(2)
+    a = rng.uniform(0, 1, (H, W, 3)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.1, a.shape), 0, 1).astype(np.float32)
+    close(jimage.l2_loss(jnp.asarray(a), jnp.asarray(b)),
+          timage.l2_loss(T(a), T(b)).item())
+    gj = jax.grad(lambda x: jimage.l2_loss(x, jnp.asarray(b)))(jnp.asarray(a))
+    x = T(a).requires_grad_(True)
+    timage.l2_loss(x, T(b)).backward()
+    assert_scaled(gj, x.grad.numpy())
+
+
 def test_mean_knn_sqdist():
     pts = np.random.default_rng(2).uniform(-1, 1, (300, 3)).astype(np.float32)
     close(jknn.mean_knn_sqdist(jnp.asarray(pts), k=3),

@@ -71,6 +71,7 @@ def assert_scaled(a, b, tol=GRAD_TOL, name=""):
                         for c in (1_000_000, 5_760_000)
                         for d in (100_000, 4_720_000)]),
     ("escalation_poll_due", [(i,) for i in range(0, 260, 5)]),
+    ("next_profile", [("lean",), ("wide",), ("huge",)]),
     ("split_profile", [("lean",), (1234,), (("huge", 3),), (["wide", 2],)]),
     ("join_profile", [("lean", 1), ("lean", 3), (5000, 2)]),
     ("depth_key_bits", [(4, 3), (32, 32), (120, 68)]),

@@ -157,6 +157,20 @@ def test_from_point_cloud_matches():
     assert TG.sh_degree_up(2, 3) == JG.sh_degree_up(2, 3) == 3
 
 
+@pytest.mark.parametrize("isotropic", [False, True])
+def test_active_arrays_match(isotropic):
+    rng = np.random.default_rng(8)
+    pts = rng.uniform(-1, 1, (40, 3)).astype(np.float32)
+    cols = rng.uniform(0.1, 0.9, (40, 3)).astype(np.float32)
+    js = JG.from_point_cloud(pts, cols, 2, capacity=64, isotropic=isotropic)
+    ts = TG.from_point_cloud(pts, cols, 2, capacity=64, isotropic=isotropic,
+                             device="cpu")
+    for a, b in zip(JG.active_arrays(js, isotropic),
+                    TG.active_arrays(ts, isotropic)):
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6,
+                                   atol=1e-7)
+
+
 def test_convert_round_trip():
     js = JG.from_point_cloud(np.random.default_rng(7).uniform(
         -1, 1, (40, 3)).astype(np.float32), np.full((40, 3), 0.5, np.float32),
