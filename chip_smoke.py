@@ -206,15 +206,42 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
                over iterations 304-306 (305 a rigidity iteration: the
                `motion_mlp` / `rigidity_knn` ranges, each kernel's device
                time a launch) and one densification call of each model.
- 11. report  — the card's name and power limit (nvidia-smi), one JSON line
+ 11. scaling — the multi-device and sort tools (rodygs_tpu_torch/tools/).
+               (a) A 1-rank NCCL world in this process: at 512x512 / 100,000
+               (the JAX scaling script's default) and at 1920x1080 /
+               240,000 (the flagship's width), each at the fragment profile
+               its frames 0-3 need ("lean" unless their demand asks more),
+               the tool's first sharded step against the trainer's own step
+               on the same state (params, poses, moments, statistics and
+               loss bit-identical), then `scaling_bench.run` (the 1-rank
+               baseline, 10 timed steps; launch counters zeroed by the tool
+               just before its warm-up step and read after its last step:
+               11 of each kernel). (b) `scaling_bench` in a 2-rank Gloo
+               world sharing the card at 512x512 over 2x1x1, 1x2x1, 1x1x2
+               and the baseline (correctness only: every row, the tile and
+               gauss meshes' first loss equal to the baseline's within
+               1e-5, every rank launching every kernel). (c)
+               `measure_dyn_replication` at 262,144 slots against phase
+               10's ms an iteration. (d) `sort_microbench`'s curve and its
+               [4, C/4] banded point. (e) With 4 cards or more: the sweep
+               under `torch.distributed.run --standalone --nproc_per_node
+               4` over NCCL at both workloads (every factorisation of 4),
+               `multihost_smoke --ranks 4 --backend nccl`, and on rank 0
+               of a 2x1x2 step the four kernels against their plain
+               versions on its share of its render; with fewer cards one
+               line says the four-card run was not run and why.
+ 12. report  — the card's name and power limit (nvidia-smi), one JSON line
                of per-kernel numbers (`launches_joint`: launches in phase 6;
                `launches_eval`: inside the two eval() calls of phase 7;
                `launches_bands`: in its three banded renders;
                `launches_cli`: in each CLI of phase 8; `launches_multi`:
                each rank's launches in phase 9c; `launches_torchrun`: each
                rank's in phase 9d's first run; `launches_flagship`: in
-               phase 10's training; `flagship`: ms and bound_ms on phase
-               10's frame-0 render, train_ms_per_launch in its profile),
+               phase 10's training; `launches_scaling`: in each workload's
+               1-rank baseline of phase 11a; `launches_four_card`: each
+               rank's over both four-card sweeps of phase 11e, null when
+               it did not run; `flagship`: ms and bound_ms on phase 10's
+               frame-0 render, train_ms_per_launch in its profile),
                and last
                {"ok": true, "device": ...}. The tile kernels' rows carry
                `launches_legacy` (one legacy render of phase 5a),
@@ -2780,7 +2807,7 @@ def phase_flagship(device):
     densification call of each model. Returns ({kernel: launches in
     train}, {kernel: max_abs_err}, {kernel: dict(ms, bound_ms, bound_by: on
     frame 0's render; train_ms_per_launch: the profiled iterations' mean
-    over all their renders)})."""
+    over all their renders)}, the tool's median ms an iteration)."""
     import torch
     from rodygs_tpu_torch import kernel_check as KC
     from rodygs_tpu_torch import kernels
@@ -2909,7 +2936,355 @@ def phase_flagship(device):
     return launches, errs, {k: dict(ms=on_render[k], bound_ms=bounds[k][0],
                                     bound_by=bounds[k][1],
                                     train_ms_per_launch=per_launch[k])
-                            for k in bounds}
+                            for k in bounds}, res["step_ms_median"]
+
+
+# --------------------------------------------------------------------------
+# scaling: the multi-device and sort tools
+# --------------------------------------------------------------------------
+
+# tools/scaling_bench.py's workloads: the JAX script's default, and the
+# flagship's width at the 1080p render of phase 5b
+SCALING_WORKLOADS = ((512, 512, 100_000), (1920, 1080, 240_000))
+SCALING_ITERS = 10
+SCALING_GLOO_ITERS = 3
+SCALING_GLOO_MESHES = "2x1x1,1x2x1,1x1x2"
+SCALING_TIMEOUT = 600.0
+FOUR_CARD_CHECK_MESH = (2, 1, 2)
+
+
+def scaling_sweep_rank(rank, argv):
+    """One rank of a world that runs tools/scaling_bench.py's sweep."""
+    from rodygs_tpu_torch.tools import scaling_bench as SB
+
+    return SB.run(SB.build_parser().parse_args(argv))
+
+
+def scaling_args(device, width, height, n, iters, profile, *extra):
+    return ["--width", str(width), "--height", str(height),
+            "--gaussians", str(n),
+            "--iters", str(iters), "--fragment_profile", str(profile),
+            "--device", device.type, *extra]
+
+
+def log_sweep(tag, summary):
+    for row in summary["meshes"]:
+        short = {k: v for k, v in row.items() if k not in ("launches",)}
+        log(f"[scaling] {tag} {json.dumps(short)}")
+    require(not summary["failed"], f"scaling {tag}: meshes failed "
+            f"{summary['failed']}")
+
+
+def scaling_one_rank(device):
+    """(a) The sweep at world size 1 through a 1-rank NCCL world, at both
+    workloads; before each, the sharded step's first step against the
+    trainer's own step on the same state (bit for bit). Returns ({workload:
+    summary}, {workload: profile})."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from rodygs_tpu_torch.tools import scaling_bench as SB
+    from rodygs_tpu_torch.train.trainer_static import ThreeDGSTrainer
+
+    tmp = tempfile.mkdtemp(prefix="rodygs_scaling_")
+    dist.init_process_group("nccl", init_method=f"file://{tmp}/init",
+                            rank=0, world_size=1)
+    out, profiles = {}, {}
+    try:
+        for width, height, n in SCALING_WORKLOADS:
+            tag = f"{width}x{height}/{n}"
+            t0 = time.perf_counter()
+            store, poses, frames = SB.build_scene(n, width, height, 8,
+                                                  device=device)
+            profile, demand = SB.scene_profile(store, poses, frames, width,
+                                               height)
+            profiles[tag] = profile
+            mesh, step, state, batch = SB.mesh_step(
+                (1, 1, 1), store, poses, frames, width, height, device)
+            cfg, loss = SB.static_setup(width, height)
+            trainer = ThreeDGSTrainer(cfg, loss, store, poses, 3.0,
+                                      device=device)
+            active = loss.active_set(1)
+            single, m1 = trainer.step(state, frames[0], 1.0, active, 3,
+                                      profile)
+            sharded, m2 = step(state, batch, 1.0, active, 3, profile)
+            torch.cuda.synchronize()
+            exact = all(torch.equal(a, b) for a, b in zip(
+                [*single.store.params, *single.poses, *single.opt.mu,
+                 *single.opt.nu, *single.stats],
+                [*sharded.store.params, *sharded.poses, *sharded.opt.mu,
+                 *sharded.opt.nu, *sharded.stats]))
+            log(f"[scaling] (a) {tag}: fragment demand {demand}, profile "
+                f"{profile!r}; one NCCL rank ({mesh.backend}), the tool's "
+                f"first step against the trainer's: params / poses / "
+                f"moments / statistics bit-identical {exact}, loss "
+                f"{float(m1['loss']):.7f} / {float(m2['loss']):.7f}")
+            require(exact and float(m1["loss"]) == float(m2["loss"]),
+                    f"scaling {tag}: the 1-rank step differs from the "
+                    f"trainer's")
+            del trainer, single, sharded, state, batch, step, mesh
+            del store, poses, frames
+            torch.cuda.empty_cache()
+            summary = SB.run(SB.build_parser().parse_args(scaling_args(
+                device, width, height, n, SCALING_ITERS, profile)))
+            log_sweep(f"(a) {tag}", summary)
+            base = summary["meshes"][0]
+            require(all(v == SCALING_ITERS + 1
+                        for v in base["launches"][0].values()),
+                    f"scaling {tag}: launches {base['launches']} != "
+                    f"{SCALING_ITERS + 1} of each kernel")
+            log(f"[scaling] (a) {tag}: {time.perf_counter() - t0:.2f} s, "
+                f"launches {base['launches'][0]}")
+            out[tag] = summary
+            torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out, profiles
+
+
+def scaling_gloo(device, profile):
+    """(b) The sweep in a 2-rank Gloo world sharing the card at 512x512 and
+    fragment profile `profile`: correctness only. The tile- and
+    gauss-sharded meshes' first loss must equal the baseline's (one frame);
+    the data mesh's is the mean of two frames'."""
+    from rodygs_tpu_torch.parallel.dryrun import run_world
+
+    width, height, n = SCALING_WORKLOADS[0]
+    t0 = time.perf_counter()
+    argv = scaling_args(device, width, height, n, SCALING_GLOO_ITERS, profile,
+                        "--meshes", SCALING_GLOO_MESHES)
+    ranks = run_world(scaling_sweep_rank, 2, (argv,), backend="gloo",
+                      timeout_s=SCALING_TIMEOUT)
+    summary = ranks[0]
+    log_sweep("(b) 2 Gloo ranks sharing one card (correctness, not a "
+              "speed)", summary)
+    rows = {tuple(r["mesh"].values()): r for r in summary["meshes"]}
+    base = rows[(1, 1, 1)]["first_loss"][0]
+    for shape, row in rows.items():
+        require(all(math.isfinite(x) for x in row["first_loss"])
+                and len(set(row["first_loss"])) == 1,
+                f"scaling (b) {shape}: first losses {row['first_loss']}")
+        require(all(v > 0 for r in row["launches"] for v in r.values()),
+                f"scaling (b) {shape}: a kernel never launched")
+        if shape[0] == 1:
+            require(abs(row["first_loss"][0] - base) <= 1e-5 * base,
+                    f"scaling (b) {shape}: first loss {row['first_loss'][0]}"
+                    f" != the baseline's {base}")
+    require(ranks[1]["meshes"] == summary["meshes"],
+            "scaling (b): the ranks disagree on the rows")
+    log(f"[scaling] (b) {time.perf_counter() - t0:.2f} s")
+    return summary
+
+
+def four_card_check_rank(rank, shape, width, height, n, profile,
+                         device=None):
+    """One rank of the four-card NCCL world: the 512x512 scene on mesh
+    `shape`, the gradients of one sharded step at fragment profile
+    `profile` with its kernel launches counted and its overflow flag; the
+    all-reduce of those parameter gradients over the data axis and over
+    all four ranks, timed (10 synchronised calls, the median); rank 0 holds
+    the four kernels against their plain versions on its share of its
+    render at the same profile (`kernel_check.check_tile_block`, as phase
+    9c). On its own card unless `device` is "cpu" (a rehearsal)."""
+    import torch
+    from rodygs_tpu_torch import kernel_check as KC
+    from rodygs_tpu_torch import kernels
+    from rodygs_tpu_torch.parallel import collectives as PC
+    from rodygs_tpu_torch.parallel.mesh import rank_device
+    from rodygs_tpu_torch.parallel.sharded import composite_axes
+    from rodygs_tpu_torch.render.rasterize import _default_tight
+    from rodygs_tpu_torch.tools import scaling_bench as SB
+    from rodygs_tpu_torch.train.trainer_static import make_camera_from_poses
+    from rodygs_tpu_torch.utils.platform import device_label, resolve_device
+
+    resolve_device(device or "cuda")
+    dev = rank_device(device)
+    sync = (lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda" \
+        else (lambda: None)
+    store, poses, frames = SB.build_scene(n, width, height, 8, device=dev)
+    mesh, step, state, batch = SB.mesh_step(shape, store, poses, frames,
+                                            width, height, dev)
+    kernels.reset_launches()
+    grads = step.grads(state, batch, step.loss.active_set(1), 3, profile)
+    sync()
+    out = {"rank": rank, "coords": mesh.coords, "card": device_label(dev),
+           "launches": dict(kernels.LAUNCHES), "loss": float(grads[0]),
+           "overflow": bool(grads[4]), "fragments": int(grads[6]),
+           "allreduce_mb": sum(g.numel() for g in grads[1]) * 4 / 2**20,
+           "allreduce_ms": {}}
+    for name, axis in (("data", mesh.axis("data")), ("world", mesh.world)):
+        times = []
+        for _ in range(11):
+            sync()
+            t0 = time.perf_counter()
+            PC.psum(grads[1], axis)
+            sync()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out["allreduce_ms"][f"{name} ({axis.size} ranks)"] = float(
+            np.median(times[1:]))
+    if rank == 0:
+        comp = composite_axes(mesh)
+        cam = make_camera_from_poses(poses, frames[mesh.coords["data"]])
+        tiles = -(-width // 16) * -(-height // 16)
+        s = KC.capture_stages(store.params, store.alive, cam, 3, width,
+                              height, profile, _default_tight(tiles), 4)
+        out["capture_overflow"] = bool(s["cb"].overflow)
+        out["kernel_errs"] = KC.check_tile_block(s, comp.size, comp.index)
+    return out
+
+
+def scaling_four_card(device, profiles=None):
+    """(e) Four cards, NCCL between them: the sweep over every
+    factorisation of 4 under torchrun at both workloads,
+    tools/multihost_smoke over 4 NCCL processes, and the four kernels on
+    rank 0's share of a 2x1x2 step. Returns ({workload: summary}, per-rank
+    launches summed over both sweeps, {kernel: max_abs_err})."""
+    import os
+    import tempfile
+    import torch
+    from rodygs_tpu_torch.parallel.dryrun import run_world
+    from rodygs_tpu_torch.tools import scaling_bench as SB
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, RODYGS_DIST_BACKEND="nccl", OMP_NUM_THREADS="1")
+    sweeps, launches = {}, [dict.fromkeys(SOURCES, 0) for _ in range(4)]
+    for width, height, n in SCALING_WORKLOADS:
+        tag = f"{width}x{height}/{n}"
+        profile = (profiles or {}).get(tag)
+        if profile is None:
+            scene = SB.build_scene(n, width, height, 8, device=device)
+            profile, _ = SB.scene_profile(*scene, width, height)
+            del scene
+            torch.cuda.empty_cache()
+        profiles = {**(profiles or {}), tag: profile}
+        with tempfile.TemporaryDirectory() as tmp:
+            out = Path(tmp) / "scaling.json"
+            t0 = time.perf_counter()
+            res = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node", "4", "-m",
+                 "rodygs_tpu_torch.tools.scaling_bench",
+                 *scaling_args(device, width, height, n, SCALING_ITERS,
+                               profile, "--out", str(out))],
+                cwd=root, env=env, capture_output=True, text=True,
+                timeout=SCALING_TIMEOUT)
+            wall = time.perf_counter() - t0
+            for line in res.stdout.splitlines():
+                if line.startswith("[scaling] rank"):
+                    log(f"[scaling] (e) {tag} {line[len('[scaling] '):]}")
+            if res.returncode != 0:
+                log(res.stdout[-4000:] + res.stderr[-4000:])
+            require(res.returncode == 0, f"four-card sweep {tag}: exit code "
+                    f"{res.returncode}")
+            summary = json.loads(out.read_text())
+        log_sweep(f"(e) four cards over NCCL, {tag}, profile {profile!r} "
+                  f"({wall:.2f} s wall)", summary)
+        require(summary["n_devices"] == 4 and len(summary["meshes"]) == 7,
+                f"four-card sweep {tag}: {len(summary['meshes'])} meshes")
+        for row in summary["meshes"]:
+            for r, counts in enumerate(row["launches"]):
+                for k, v in counts.items():
+                    launches[r][k] += v
+        sweeps[tag] = summary
+
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, "-m", "rodygs_tpu_torch.tools.multihost_smoke",
+         "--ranks", "4", "--backend", "nccl"], cwd=root, env=env,
+        capture_output=True, text=True, timeout=2 * SCALING_TIMEOUT)
+    for line in res.stdout.splitlines():
+        if line.startswith(("[multihost]", "MULTIHOST_SMOKE")):
+            log(f"[scaling] (e) {line}")
+    if res.returncode != 0:
+        log(res.stdout[-4000:] + res.stderr[-4000:])
+    require(res.returncode == 0 and "MULTIHOST_SMOKE PASS" in res.stdout,
+            f"multihost_smoke over 4 NCCL processes: exit code "
+            f"{res.returncode}")
+    log(f"[scaling] (e) multihost_smoke {time.perf_counter() - t0:.2f} s")
+
+    width, height, n = SCALING_WORKLOADS[0]
+    profile = profiles[f"{width}x{height}/{n}"]
+    ranks = run_world(four_card_check_rank, 4, (FOUR_CARD_CHECK_MESH, width,
+                                                height, n, profile),
+                      backend="nccl", timeout_s=SCALING_TIMEOUT)
+    for r in ranks:
+        log(f"[scaling] (e) mesh {'x'.join(map(str, FOUR_CARD_CHECK_MESH))} "
+            f"rank {r['rank']} {r['coords']} on {r['card']}, profile "
+            f"{profile!r}: loss {r['loss']:.6f}, {r['fragments']} fragments "
+            f"(overflow {r['overflow']}), launches {r['launches']}; NCCL "
+            f"all-reduce of the {r['allreduce_mb']:.2f} MB parameter "
+            f"gradients {json.dumps(r['allreduce_ms'])} ms")
+        require(all(v == 1 for v in r["launches"].values()),
+                f"rank {r['rank']}: launches {r['launches']}")
+        require(not r["overflow"], f"four-card check: rank {r['rank']}'s "
+                f"step overflows profile {profile!r}")
+    require(not ranks[0]["capture_overflow"], f"four-card check: rank 0's "
+            f"captured render overflows profile {profile!r}")
+    errs = ranks[0]["kernel_errs"]
+    log(f"[scaling] (e) the four kernels against their plain versions on "
+        f"rank 0's share of its render: {errs}")
+    require(len({r["loss"] for r in ranks}) == 1,
+            "four-card check: the ranks disagree on the loss")
+    require(all(v > 0 for r in launches for v in r.values()),
+            f"four-card sweeps: a rank never launched a kernel {launches}")
+    log(f"[scaling] (e) four-card part {time.perf_counter() - t_phase:.2f} s")
+    return sweeps, launches, errs
+
+
+def phase_scaling(device, joint_ms):
+    """Phase 11: the multi-device and sort tools on the card. (a) the
+    scaling sweep at world size 1 over NCCL at both workloads, (b) in a
+    2-rank Gloo world sharing the card, (c) the replicated dynamic work at
+    262,144 slots against `joint_ms` (the flagship phase's ms an
+    iteration), (d) the sort curve and one banded point; (e) with 4 cards
+    the four-card part, else one line saying why it did not run. Returns
+    (one-card launches {workload: {kernel: n}}, four-card per-rank
+    launches or None, {kernel: max_abs_err})."""
+    import torch
+    from rodygs_tpu_torch.tools import measure_dyn_replication as MDR
+    from rodygs_tpu_torch.tools import sort_microbench as SM
+
+    t_phase = time.perf_counter()
+    sweeps, profiles = scaling_one_rank(device)
+    width, height, n = SCALING_WORKLOADS[0]
+    scaling_gloo(device, profiles[f"{width}x{height}/{n}"])
+
+    t0 = time.perf_counter()
+    rep = MDR.main(MDR.build_parser().parse_args(
+        ["--joint_ms", str(joint_ms), "--device", device.type]))
+    log(f"[scaling] (c) replicated dynamic work: {json.dumps(rep)} "
+        f"({time.perf_counter() - t0:.2f} s)")
+    require(all(rep[k] is not None and math.isfinite(rep[k]) and rep[k] > 0
+                for k in ("deform_ms", "adam_ms", "share")),
+            "measure_dyn_replication gave no time")
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    curve = SM.curve(device=device)
+    h = 4
+    m = SM.band_extent(SM.HUGE_1080P, h)
+    banded = SM.bench_banded(h, m, 10, SM.chain_2d, device=device)
+    for name, c, ms in curve:
+        log(f"[scaling] (d) sort {name:44s} C={c:>9,}  {ms:8.4f} ms/sort")
+    log(f"[scaling] (d) sort bands={h} [{h},{m:,}] (key,iota,10rows) stable "
+        f"{banded:8.4f} ms/sort ({time.perf_counter() - t0:.2f} s)")
+    require(all(math.isfinite(ms) and ms > 0 for _, _, ms in curve)
+            and math.isfinite(banded) and banded > 0, "a sort was not timed")
+    torch.cuda.empty_cache()
+
+    four, errs = None, {}
+    count = torch.cuda.device_count()
+    if count >= 4:
+        _, four, errs = scaling_four_card(device, profiles)
+    else:
+        log(f"[scaling] (e) the four-card run was not run: {count} card(s) "
+            f"visible, it needs 4 on one host (README)")
+    log(f"[scaling] phase {time.perf_counter() - t_phase:.2f} s")
+    one = {tag: s["meshes"][0]["launches"][0] for tag, s in sweeps.items()}
+    return one, four, errs
 
 
 def main() -> int:
@@ -2968,7 +3343,11 @@ def main() -> int:
         device, trainer, batch_for)
     del trainer, batch_for
     torch.cuda.empty_cache()
-    launches_flagship, e_flagship, t_flagship = phase_flagship(device)
+    launches_flagship, e_flagship, t_flagship, flagship_ms = phase_flagship(
+        device)
+    torch.cuda.empty_cache()
+    launches_scaling, launches_four_card, e_scaling = phase_scaling(
+        device, flagship_ms)
 
     rows = []
     for name in kernels.KERNELS:
@@ -2987,12 +3366,17 @@ def main() -> int:
                      "launches_torchrun": [r[name]
                                            for r in launches_torchrun],
                      "launches_flagship": launches_flagship[name],
+                     "launches_scaling": {w: v[name] for w, v in
+                                          launches_scaling.items()},
+                     "launches_four_card": None if launches_four_card is None
+                     else [r[name] for r in launches_four_card],
                      "flagship": t_flagship[name],
                      "max_abs_err": max(errs[name], e512[name],
                                         e_var.get(name, 0.0),
                                         e1080.get(name, 0.0), e_joint[name],
                                         e_eval[name], e_cli[name],
-                                        e_multi[name], e_flagship[name]),
+                                        e_multi[name], e_flagship[name],
+                                        e_scaling.get(name, 0.0)),
                      "ms": t["ms"], "plain_ms": t["plain_ms"],
                      "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                      "library_ms": t["library_ms"]})
@@ -3016,7 +3400,9 @@ def main() -> int:
             f"{rows[-1]['launches_cli']}, per rank in the 4-rank world "
             f"{rows[-1]['launches_multi']}, per rank under torchrun "
             f"{rows[-1]['launches_torchrun']}, in the flagship run's "
-            f"training {launches_flagship[name]}")
+            f"training {launches_flagship[name]}, in the one-card scaling "
+            f"baselines {rows[-1]['launches_scaling']}, per rank in the "
+            f"four-card sweeps {rows[-1]['launches_four_card']}")
 
     print(card_name_and_limit())
     print(json.dumps({"kernels": rows}))

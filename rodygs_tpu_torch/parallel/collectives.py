@@ -15,6 +15,22 @@ Backends. The caller states the backend (mesh.py); nothing here picks
 one. NCCL serves ranks that each have their own card. Gloo serves the CPU,
 and ranks that share one card (NCCL refuses two ranks on one GPU).
 
+NCCL, as this module uses it (run across four H100s over NVLink, torch
+2.11.0+cu128): `all_reduce` (sum, max; float32, float64, int32),
+`all_gather_into_tensor` and `reduce_scatter_tensor`. NCCL requires of
+them what the code here provides: every rank's input the same size,
+contiguous and on the rank's own (current) card, the output allocated
+contiguous at size times the input; bool tensors go as uint8 (neither
+backend has bool). The calls are synchronous: the caller's stream waits
+for NCCL's, so a host read of a reduced value (`bool(overflow)` of the
+sharded step's fragment counts) sees the reduced value. Every rank must
+issue the same collectives in the same order on the same groups: NCCL
+waits for a missing peer instead of raising, until the process group's
+timeout (multihost.DEFAULT_TIMEOUT_S, `run_world`'s deadline). The object
+collectives of multihost.py and the trainers (`all_gather_object`,
+`broadcast_object_list`) run on the current card under NCCL, which is
+why the mesh sets each rank's card before any of them.
+
 Gloo and CUDA tensors, measured on an H100 (torch 2.11.0+cu128, two ranks
 on one card): `all_reduce` (sum, max), `broadcast`,
 `all_gather_into_tensor`, `reduce_scatter_tensor`, `all_gather` and

@@ -12,7 +12,9 @@ importable in a fresh process (the ranks import nothing of the caller's
 but that module).
 
 The dry run is the port's twin of the JAX package's `dryrun_multichip`
-(`__graft_entry__.py`) and `scripts/multihost_smoke.py`: each rank builds
+(`__graft_entry__.py`; `tools/multihost_smoke.py` runs it over processes
+joined by the RODYGS_* contract, as `scripts/multihost_smoke.py` runs
+`dryrun_multichip` over two JAX processes): each rank builds
 the same seeded scene and runs the joint trainer over the mesh for six
 iterations: sharded densification of both stores every second iteration,
 a forced fragment-profile escalation (a tiny initial capacity), the SH

@@ -19,6 +19,11 @@ outermost: rank = (d * n_gauss + g) * n_tile + t. The composite axis
 Every process group is created on every rank in the same order (a torch
 requirement); an axis of size 1 has no group and its collectives are the
 identity.
+
+A mesh may span the first ranks of the world (`ranks=`, the counterpart
+of the JAX `make_mesh(devices=devices[:n])`): position i on rank i, every
+rank of the world still calls `make_mesh` (group creation is collective
+over the world), and a rank past the mesh gets None.
 """
 
 from __future__ import annotations
@@ -53,8 +58,9 @@ class Axis:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """A ("data", "gauss", "tile") mesh: `shape` with the JAX package's
-    keys, this rank's `coords`, its `device` and the `axes` it holds a
-    group for (each axis and the composite ("gauss", "tile"))."""
+    keys, this rank's `coords`, its world `rank`, the mesh's rank count
+    `world_size`, its `device` and the `axes` it holds a group for (each
+    axis and the composite ("gauss", "tile"))."""
 
     shape: dict
     coords: dict
@@ -121,21 +127,25 @@ def _check_nccl_cards(device: torch.device) -> None:
 
 
 def make_mesh(n_data: int | None = None, n_tile: int = 1, n_gauss: int = 1,
-              device=None) -> Mesh:
+              device=None, ranks: int | None = None) -> Mesh | None:
     """Build the ("data", "gauss", "tile") mesh over the process world
-    (a world of one process when torch.distributed is not initialized).
-    `n_data` defaults to the world size over n_tile * n_gauss; a product
-    that does not match the world size raises."""
+    (a world of one process when torch.distributed is not initialized), or
+    over its first `ranks` ranks (None on the ranks past them; every rank
+    must call). `n_data` defaults to the rank count over n_tile * n_gauss;
+    a product that does not match the rank count raises."""
     initialized = dist.is_initialized()
     world = dist.get_world_size() if initialized else 1
     rank = dist.get_rank() if initialized else 0
+    n = world if ranks is None else int(ranks)
+    if not 1 <= n <= world:
+        raise ValueError(f"a mesh on {n} ranks of a world of {world}")
     if n_data is None:
-        n_data = world // (n_tile * n_gauss)
-    if n_data * n_tile * n_gauss != world:
-        raise ValueError(f"mesh {n_data}x{n_gauss}x{n_tile} != {world} "
+        n_data = n // (n_tile * n_gauss)
+    if n_data * n_tile * n_gauss != n:
+        raise ValueError(f"mesh {n_data}x{n_gauss}x{n_tile} != {n} "
                          "processes")
     shape = {"data": n_data, "gauss": n_gauss, "tile": n_tile}
-    coords = coords_of(rank, shape)
+    coords = coords_of(rank if rank < n else 0, shape)
     dev = rank_device(device)
     backend = dist.get_backend() if initialized else "none"
     if dev.type == "cuda":
@@ -163,9 +173,11 @@ def make_mesh(n_data: int | None = None, n_tile: int = 1, n_gauss: int = 1,
                         *[range(shape[a]) for a in names]):
                     c = dict(zip(others, fixed)) | dict(zip(names, along))
                     members.append(rank_of(c, shape))
-                g = (dist.new_group(members) if names != AXES
-                     else dist.group.WORLD)
+                g = (dist.group.WORLD if names == AXES and n == world
+                     else dist.new_group(members))
                 if rank in members:
                     group = g
         axes[names] = Axis(names, size, index, group, dev)
-    return Mesh(shape, coords, rank, world, backend, dev, axes)
+    if rank >= n:
+        return None
+    return Mesh(shape, coords, rank, n, backend, dev, axes)

@@ -8,6 +8,10 @@ import the JAX package. Each runs as `python -m rodygs_tpu_torch.tools.<name>`:
   run_mast3r              the MASt3R runner (needs the external network)
   convert_reference_ckpt  reference torch checkpoints -> the v2 format
   img2video               frames -> mp4
+  scaling_bench           rays/s and scaling efficiency over mesh shapes
+  measure_dyn_replication the work a gauss-sharded dynamic step replicates
+  multihost_smoke         the dry run over processes joined by RODYGS_*
+  sort_microbench         the fragment sort at 1080p's capacities
 
 The tools that compute run on `cuda` unless given `--device cpu`.
 """

@@ -321,6 +321,40 @@ def test_make_mesh_single_process():
         make_mesh(n_tile=2, n_gauss=2, device="cpu")
 
 
+def test_make_mesh_over_a_subset_of_ranks():
+    """A mesh over the first ranks of a 4-rank world (the baseline of a
+    scaling sweep): positions on ranks 0.. in order, groups of those ranks
+    only, None on the others, and every rank still joins the group
+    creation; then the whole world on the same ranks. A rank count outside
+    the world is refused."""
+    out = run_world(ranks.sub_mesh_groups, 4, (), backend="gloo",
+                    timeout_s=WORLD_TIMEOUT)
+    for rank, r in enumerate(out):
+        if rank < 2:
+            d2 = r["d2"]
+            assert d2["coords"] == {"data": rank, "gauss": 0, "tile": 0}
+            assert d2["world_size"] == 2 and d2["sum"] == 1.0
+            assert d2["groups"]["data"] == [0, 1]
+            assert d2["groups"]["gauss"] == [rank]
+        else:
+            assert r["d2"] is None
+        if rank < 3:
+            g3 = r["g3"]
+            assert g3["coords"] == {"data": 0, "gauss": rank, "tile": 0}
+            assert g3["sum"] == 3.0
+            assert g3["groups"]["gauss"] == g3["groups"]["gauss/tile"] == [
+                0, 1, 2]
+        else:
+            assert r["g3"] is None
+        t4 = r["t4"]
+        assert t4["coords"]["tile"] == rank and t4["world_size"] == 4
+        assert t4["groups"]["tile"] == [0, 1, 2, 3] and t4["sum"] == 6.0
+    for bad in (0, 2):
+        with pytest.raises(ValueError, match="a mesh on"):
+            make_mesh(device="cpu", ranks=bad)
+    assert make_mesh(device="cpu", ranks=1).shape["data"] == 1
+
+
 def test_collectives_refuse_other_devices():
     """A collective checks its tensor against the mesh's device type: no
     silent move between the card and the host."""

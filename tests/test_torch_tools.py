@@ -19,7 +19,8 @@
   * profile_step --no_trace: its `[steady]` line parses with
     `scripts/ab_report.py`'s regex; img2video: a readable video;
   * every tool module imports and answers --help with JAX and the JAX
-    package refused at import.
+    package refused at import (the multi-device and sort tools too; their
+    parity tests are in tests/test_torch_scaling.py).
 
 torch runs on one thread here (see tests/test_torch_pipeline.py).
 """
@@ -73,7 +74,8 @@ W, H, N = 64, 48, 300
 IMG_TOL, DEPTH_TOL, GRAD_TOL = 2e-5, 2e-4, 5e-4
 TOOLS = ("flagship_1080p", "profile_step", "mast3r_unproject",
          "mast3r_driver", "run_mast3r", "convert_reference_ckpt",
-         "img2video")
+         "img2video", "scaling_bench", "measure_dyn_replication",
+         "multihost_smoke", "sort_microbench")
 
 
 @pytest.fixture(autouse=True, scope="module")

@@ -331,3 +331,30 @@ def resume_read_run(rank: int, shape: dict, setup: dict, path: str) -> dict:
             "block_xyz": npy(st.state.store.params.xyz),
             "static": npy(st.global_state()),
             "dynamic": npy(joint.dynamic.state)}
+
+
+def scaling_sweep(rank: int, argv: list) -> dict:
+    """`tools/scaling_bench`'s sweep on this world (every rank returns the
+    summary; the rows are the same on every rank)."""
+    from rodygs_tpu_torch.tools import scaling_bench
+
+    return scaling_bench.run(scaling_bench.build_parser().parse_args(argv))
+
+
+def sub_mesh_groups(rank: int) -> dict:
+    """Meshes over the first ranks of a 4-rank world: 2 x 1 x 1 on ranks
+    0-1 and 1 x 3 x 1 on ranks 0-2 (the ranks past them get None), then
+    the whole world as 1 x 1 x 4; each rank's coordinates, its groups'
+    members (every rank's global rank gathered over each axis) and a psum
+    over the mesh."""
+    out = {}
+    for tag, shape, ranks in (("d2", (2, 1, 1), 2),
+                              ("g3", (1, 3, 1), 3),
+                              ("t4", (1, 1, 4), None)):
+        mesh = make_mesh(n_data=shape[0], n_gauss=shape[1], n_tile=shape[2],
+                         device="cpu", ranks=ranks)
+        out[tag] = None if mesh is None else {
+            "coords": mesh.coords, "world_size": mesh.world_size,
+            "groups": _groups(mesh),
+            "sum": float(C.psum(torch.tensor([float(rank)]), mesh.world)[0])}
+    return out
