@@ -34,6 +34,20 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
                every kernel launched and the capacity profile kept 1 band.
                Prints step_ms (median of the last 10 synchronised steps),
                the spread of the last 50, and Mpix/s.
+  3a. bench — `rodygs_tpu_torch/tools/bench.py` (the counterpart of
+               bench.py) in this process at both of its points: 512x512 /
+               100k (capacity 131,072, 8 frames, 9 windows x 10) and
+               1920x1080 / 240k (262,144, 4 frames, 5 windows x 8), each
+               after 95 warm-up iterations numbered 910-1004; the tool's
+               card line and JSON line printed here. Requires bench.py's
+               keys, a finite value above 0, no error and a steady window
+               at each point, and every kernel launched in each point's
+               timed windows (the tool zeroes the counts just before its
+               windows and reads them just after). Then the four kernels
+               against their plain versions on frame 0 of each point's
+               state as its windows left it, at the profile it settled
+               at (expand and segsum on every sort band), nothing
+               dropped.
   4. profile — torch.profiler over 5 more steps: device time by kernel,
                the device's busy share of the wall time, and the device
                time of the fragment-scale PyTorch operations around the
@@ -228,10 +242,28 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
                4` over NCCL at both workloads (every factorisation of 4),
                `multihost_smoke --ranks 4 --backend nccl`, and on rank 0
                of a 2x1x2 step the four kernels against their plain
-               versions on its share of its render; with fewer cards one
-               line says the four-card run was not run and why.
+               versions on its share of its render. (f) With 4 cards: the
+               train CLI under `torch.distributed.run --standalone
+               --nproc_per_node 4` over NCCL, one card per rank, `--mesh
+               data=4`, train_kubric_mrig.yaml on phase 8's scene: 700
+               iterations with a snapshot every 350 (both models densify
+               at 600), then `--resume` to 750; exit code 0 twice, one
+               run directory with one writer's files, a log per rank with
+               its mesh row and the resume line, the same logged losses
+               and store sizes after the densification on every rank,
+               every kernel launched on every rank, resume.ckpt loaded by
+               the single-process port with the static store of
+               static_last.ckpt, the eval_wo_align CLI on the run's
+               checkpoints with finite PSNR / SSIM / LPIPS (seeded LPIPS
+               weights), and the four kernels against their plain
+               versions on the end state's concatenated render; prints
+               each rank's StepTimer p50 and the efficiency p50(phase 8)
+               / p50(four cards). With fewer cards one line each says
+               that (e) and (f) were not run and why.
  12. report  — the card's name and power limit (nvidia-smi), one JSON line
-               of per-kernel numbers (`launches_joint`: launches in phase 6;
+               of per-kernel numbers (`launches_bench`: in each point's
+               timed windows of phase 3a; `launches_joint`: launches in
+               phase 6;
                `launches_eval`: inside the two eval() calls of phase 7;
                `launches_bands`: in its three banded renders;
                `launches_cli`: in each CLI of phase 8; `launches_multi`:
@@ -240,7 +272,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
                phase 10's training; `launches_scaling`: in each workload's
                1-rank baseline of phase 11a; `launches_four_card`: each
                rank's over both four-card sweeps of phase 11e, null when
-               it did not run; `flagship`: ms and bound_ms on phase 10's
+               it did not run; `launches_four_card_cli`: each rank's in
+               phase 11f's first run, null when it did not run;
+               `flagship`: ms and bound_ms on phase 10's
                frame-0 render, train_ms_per_launch in its profile),
                and last
                {"ok": true, "device": ...}. The tile kernels' rows carry
@@ -820,64 +854,24 @@ def phase_1080p(device, n=240_000, width=1920, height=1080):
 
 def bench_trainer(device, size=512, N=100_000, capacity=131072,
                   camera_sparse_adam=False, mesh=None):
-    """bench.py's 512^2 / 100k workload, built through the port (on `mesh`:
-    this rank's trainer of the sharded step)."""
-    import torch
-    from rodygs_tpu_torch.models import gaussians as G
-    from rodygs_tpu_torch.render.camera import make_camera
-    from rodygs_tpu_torch.render.rasterize import render
-    from rodygs_tpu_torch.train.losses import LossTerm, MultiLoss
-    from rodygs_tpu_torch.train.optim import CameraPoses
-    from rodygs_tpu_torch.train.trainer_static import (
-        FrameBatch, StaticTrainerConfig, ThreeDGSTrainer)
+    """bench.py's 512^2 / 100k workload, built through the port's
+    `tools.bench.build_workload` (with `camera_sparse_adam` or on `mesh`:
+    the trainer rebuilt on the same scene; on a mesh, this rank's trainer
+    of the sharded step)."""
+    import dataclasses
+    from rodygs_tpu_torch.tools.bench import build_workload
+    from rodygs_tpu_torch.train.trainer_static import ThreeDGSTrainer
 
-    W = H = size
-    n_frames, fov = 8, 0.9
-    rng = np.random.default_rng(7)
-    pts = rng.uniform([-2.0, -2.0, 2.5], [2.0, 2.0, 7.0],
-                      size=(N, 3)).astype(np.float32)
-    cols = rng.uniform(0.1, 0.9, size=(N, 3)).astype(np.float32)
-    store = G.from_point_cloud(pts, cols, sh_degree=3, capacity=capacity,
-                               device=device)
-    scales = np.exp(rng.uniform(-4.0, -2.6, size=(capacity, 3))).astype(np.float32)
-    store = store._replace(params=store.params._replace(
-        scaling=torch.tensor(np.log(scales), device=device)))
-    qs, ts = [], []
-    for ang in np.linspace(-0.2, 0.2, n_frames):
-        qs.append([np.cos(ang / 2), 0, np.sin(ang / 2), 0])
-        ts.append([np.sin(ang) * 4.0, 0, 0])
-    poses = CameraPoses(q_c2w=torch.tensor(qs, dtype=torch.float32, device=device),
-                        t_c2w=torch.tensor(ts, dtype=torch.float32, device=device))
-    loss = MultiLoss([LossTerm("l1", 0.8, "L1Loss"),
-                      LossTerm("d_ssim", 0.2, "SSIMLoss")])
-    cfg = StaticTrainerConfig(
-        image_width=W, image_height=H, sh_degree=3,
-        densification_interval=0, densify_from_iter=10**9,
-        camera_rotation_lr=1e-5, camera_translation_lr=1e-6,
-        camera_sparse_adam=camera_sparse_adam)
-    trainer = ThreeDGSTrainer(cfg, loss, store, poses, spatial_lr_scale=4.0,
-                              device=device, mesh=mesh)
-    gt_rng = np.random.default_rng(11)
-    gts = []
-    p = store.params
-    with torch.no_grad():
-        for i in range(n_frames):
-            cam = make_camera(poses.q_c2w[i], poses.t_c2w[i], fov, fov, 0.0,
-                              device=device)
-            img = render(p.xyz, G.get_features(p), G.get_opacity(p),
-                         G.get_scaling(p), p.rotation, cam, 3, W, H,
-                         alive=store.alive)["rendered_image"].cpu().numpy()
-            img = np.clip(img + gt_rng.normal(0, 0.05, img.shape), 0.0, 1.0)
-            gts.append(torch.tensor(img, dtype=torch.float32, device=device))
-
-    def batch_for(i):
-        return FrameBatch(gt_image=gts[i % n_frames], gt_depth=None,
-                          motion_mask=None, frame_idx=i % n_frames,
-                          time=torch.tensor(0.0, device=device),
-                          fovx=torch.tensor(fov, device=device),
-                          fovy=torch.tensor(fov, device=device))
-
-    return trainer, batch_for, (W, H)
+    work = build_workload(size, size, N, capacity, 8, device=device)
+    trainer = work.trainer
+    if camera_sparse_adam or mesh is not None:
+        cfg = dataclasses.replace(trainer.cfg,
+                                  camera_sparse_adam=camera_sparse_adam)
+        trainer = ThreeDGSTrainer(cfg, trainer.loss, trainer.state.store,
+                                  trainer.state.poses,
+                                  spatial_lr_scale=trainer.spatial_lr_scale,
+                                  device=device, mesh=mesh)
+    return trainer, work.batch_for, (size, size)
 
 
 def phase_train(device, iterations=200, **scene):
@@ -935,6 +929,96 @@ def phase_train(device, iterations=200, **scene):
         f"num_fragments={frags[-1]} settled_profile={trainer.fragment_profile!r}")
     log(f"[train] step_ms_all={[round(x * 1e3, 2) for x in step_s]}")
     return trainer, batch_for, launches, iterations
+
+
+BENCH_KEYS = ("metric", "value", "unit", "vs_baseline", "workloads",
+              "host_load1")
+
+
+def check_bench_point(name, point):
+    """The four kernels against their plain versions on frame 0 of one
+    bench point's state as its timed windows left it, at the fragment
+    profile it settled at: with more than one sort band, expand and segsum
+    on every band and the tile kernels on the bands' concatenated records
+    (`kernel_check.check_bands`), as the trainer renders them. Requires
+    that nothing is dropped. Returns {kernel: max_abs_err}."""
+    from rodygs_tpu_torch import kernel_check as KC
+    from rodygs_tpu_torch.render.binning import tile_grid
+    from rodygs_tpu_torch.render.compact import split_profile
+    from rodygs_tpu_torch.render.rasterize import _default_tight
+    from rodygs_tpu_torch.train.trainer_static import make_camera_from_poses
+
+    tr = point.trainer
+    st, W, H = tr.state, tr.cfg.image_width, tr.cfg.image_height
+    tx, ty = tile_grid(W, H)
+    profile, bands = split_profile(tr.fragment_profile)
+    args = (st.store.params, st.store.alive,
+            make_camera_from_poses(st.poses, point.batch_for(0)),
+            tr.active_sh_degree, W, H, profile, _default_tight(tx * ty))
+    if bands > 1:
+        errs, cb = KC.check_bands(*args, bands, seed=8)
+    else:
+        s = KC.capture_stages(*args, 8)
+        errs, cb = KC.check_stages(s), s["cb"]
+    log(f"[bench] check on frame 0 of {name}'s timed state at profile "
+        f"{tr.fragment_profile!r} ({bands} band(s)): fragments "
+        f"{int(cb.num_fragments)}, dropped {int(cb.dropped)}, "
+        f"max_abs_err={errs}")
+    require(int(cb.dropped) == 0,
+            f"bench {name}: the check's binning dropped {int(cb.dropped)} "
+            f"fragments at {tr.fragment_profile!r}")
+    return errs
+
+
+def phase_bench(device):
+    """Phase 3a: `tools/bench.py`'s main in this process at both of its
+    points; its JSON line printed here. Requires bench.py's keys, a finite
+    value above 0, no error and at least one steady window at each point
+    and every kernel launched in each point's timed windows (the tool sets
+    the counts to 0 just before its windows and reads them just after).
+    Then the four kernels against their plain versions on frame 0 of each
+    point's timed state (`check_bench_point`). Returns ({workload:
+    {kernel: launches}}, {kernel: max_abs_err})."""
+    import contextlib
+    import io
+    import torch
+    from rodygs_tpu_torch.tools import bench as B
+
+    t_phase = time.perf_counter()
+    out, points = io.StringIO(), {}
+    with contextlib.redirect_stdout(out):
+        rc = B.main(["--device", device.type], points=points)
+    lines = out.getvalue().strip().splitlines()
+    log(f"[bench] tools/bench.py exit code {rc} "
+        f"({time.perf_counter() - t_phase:.2f} s), on {lines[-2]}:")
+    log(lines[-1])
+    line = json.loads(lines[-1])
+    require(rc == 0, f"tools/bench.py: exit code {rc}")
+    require(tuple(line) == BENCH_KEYS, f"bench line keys {list(line)}")
+    require(math.isfinite(line["value"]) and line["value"] > 0,
+            f"bench value {line['value']}")
+    names = [B.workload_name(p["W"], p["H"], p["N"])
+             for p in (B.HEADLINE, B.FLAGSHIP)]
+    require(list(line["workloads"]) == names,
+            f"bench workloads {list(line['workloads'])}")
+    launches, errs = {}, {}
+    for name, w in line["workloads"].items():
+        require("error" not in w, f"bench {name}: {w.get('error')}")
+        require(w["n_steady"] >= 1, f"bench {name}: no steady window")
+        launches[name] = points[name].launches
+        log(f"[bench] {name}: step_ms {w['step_ms']} ({w['n_steady']} of "
+            f"{len(w['windows_ms'])} windows steady), profile "
+            f"{w['fragment_profile']}, launches in the timed windows "
+            f"{launches[name]}")
+        require(all(launches[name][k] > 0 for k in SOURCES),
+                f"bench {name}: a kernel never launched in the windows "
+                f"{launches[name]}")
+        for k, v in check_bench_point(name, points[name]).items():
+            errs[k] = max(errs.get(k, 0.0), v)
+    del points
+    torch.cuda.empty_cache()
+    log(f"[bench] phase {time.perf_counter() - t_phase:.2f} s")
+    return launches, errs
 
 
 # the variants phase: the oracle scene, the sparse-Adam run, timing reps
@@ -2279,7 +2363,8 @@ def phase_cli(device):
     """The train CLI and both eval CLIs, as subprocesses, on a scene that
     `data/synthetic.py` writes at the kubric shape (phase 8); the kernels
     against their plain versions on the train run's end state. Returns
-    ({cli: {kernel: launches}}, {kernel: max_abs_err})."""
+    ({cli: {kernel: launches}}, {kernel: max_abs_err}, the train CLI's
+    StepTimer p50 in ms)."""
     import shutil
     import tempfile
     import torch
@@ -2405,7 +2490,7 @@ def phase_cli(device):
     finally:
         shutil.rmtree(root, ignore_errors=True)
     log(f"[cli] phase {time.perf_counter() - t_phase:.2f} s")
-    return launches, errs
+    return launches, errs, steps["p50_ms"]
 
 
 # --------------------------------------------------------------------------
@@ -2951,6 +3036,8 @@ SCALING_GLOO_ITERS = 3
 SCALING_GLOO_MESHES = "2x1x1,1x2x1,1x1x2"
 SCALING_TIMEOUT = 600.0
 FOUR_CARD_CHECK_MESH = (2, 1, 2)
+# part (f): the train CLI on four cards; iterations, snapshot, resume to
+FOUR_CARD_CLI = (CLI_ITERATIONS, CLI_CHECKPOINT_EVERY, CLI_ITERATIONS + 50)
 
 
 def scaling_sweep_rank(rank, argv):
@@ -3234,15 +3321,185 @@ def scaling_four_card(device, profiles=None):
     return sweeps, launches, errs
 
 
-def phase_scaling(device, joint_ms):
+def _rank_log(text):
+    """What part (f) reads from one rank's train log: the logged
+    iterations' (iteration, static loss, dynamic loss, N_static), the
+    densification lines, the StepTimer summaries and the kernel launches
+    of each run."""
+    rows, dens = [], []
+    for ln in text.splitlines():
+        if "] static " in ln:
+            it = int(ln.split("[")[-1].split("/")[0])
+            f = ln.split("] static ")[1].split()
+            rows.append((it, float(f[0]), float(f[2]), int(f[4])))
+        elif "densify at " in ln:
+            dens.append(ln.split("densify at ", 1)[1])
+    jsons = {p: [json.loads(ln.split(p, 1)[1]) for ln in text.splitlines()
+                 if p in ln] for p in ("step times ", "kernel launches ")}
+    return rows, dens, jsons["step times "], jsons["kernel launches "]
+
+
+def four_card_cli(device, one_card_p50):
+    """(f) The train CLI under `torch.distributed.run --standalone
+    --nproc_per_node 4` over NCCL, one card per rank, `--mesh data=4`, on
+    the `cli` phase's scene: FOUR_CARD_CLI[0] iterations with a snapshot
+    every FOUR_CARD_CLI[1] (both models densify at 600; the CLI bounds
+    densify_until_iter by --num_iterations, so not at 700), then `--resume`
+    to FOUR_CARD_CLI[2] with a snapshot at its end. Requires exit code 0
+    for both calls, one run directory with one writer's files, a log per
+    rank with its mesh row and the resume line, the same losses and store
+    sizes on every rank, every kernel launched on every rank; the
+    single-process port loads resume.ckpt with the static store of
+    static_last.ckpt, the eval_wo_align CLI gives finite PSNR / SSIM /
+    LPIPS (seeded LPIPS weights), and the four kernels hold against their
+    plain versions on the end state's concatenated render on this card.
+    Prints each rank's StepTimer p50 and the efficiency p50(one card) /
+    p50(four cards), the slowest rank's. Returns (per-rank launches of the
+    first run, {kernel: max_abs_err})."""
+    import os
+    import shutil
+    import tempfile
+    import torch
+    import yaml
+    from rodygs_tpu_torch.evalsuite.lpips import write_random_weights
+    from rodygs_tpu_torch.models import gaussians as G
+    from rodygs_tpu_torch.pipelines.build import (build_training_run,
+                                                  make_frame_batch)
+    from rodygs_tpu_torch.utils.checkpoint import load_checkpoint
+    from rodygs_tpu_torch.utils.config import load_yaml
+
+    t_part = time.perf_counter()
+    iters, every, resume_to = FOUR_CARD_CLI
+    root = Path(tempfile.mkdtemp(prefix="rodygs_four_cli_"))
+    cpu = device.type == "cpu"      # the CPU rehearsal: Gloo processes
+    backend = "gloo" if cpu else "nccl"
+    env = dict(os.environ, RODYGS_DIST_BACKEND=backend, OMP_NUM_THREADS="1")
+    try:
+        data = write_cli_scene(root, device, "scaling (f)")
+        runs = root / "logs" / "four"
+        run = runs / "kubric_777" / "train"
+        walls = []
+        # the resumed run snapshots at its end, which the port then loads
+        for n, every_, extra in ((iters, every, []),
+                                 (resume_to, resume_to - iters, ["--resume"])):
+            cmd = [sys.executable, "-m", "torch.distributed.run",
+                   "--standalone", "--nproc_per_node", "4", "-m",
+                   "rodygs_tpu_torch.pipelines.train", "-d", str(data), "-b",
+                   CLI_TRAIN_YAML, "-g", "four", "-n", "kubric", "-l",
+                   str(root / "logs"), "--num_iterations", str(n),
+                   "--checkpoint_every", str(every_), "--mesh", "data=4",
+                   *extra, *(["--device", "cpu"] if cpu else [])]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, cwd=Path(__file__).resolve().parent,
+                                 capture_output=True, text=True,
+                                 timeout=SCALING_TIMEOUT, env=env)
+            walls.append(time.perf_counter() - t0)
+            if res.returncode != 0:
+                log(res.stdout[-4000:] + res.stderr[-4000:])
+            require(res.returncode == 0, f"four-card train CLI "
+                    f"{' '.join(extra) or 'first run'}: exit code "
+                    f"{res.returncode}")
+        files = sorted(p.name for p in run.iterdir() if p.is_file())
+        log(f"[scaling] (f) four cards over {backend}, --mesh "
+            f"data=4: {iters} iterations in {walls[0]:.2f} s wall, --resume "
+            f"to {resume_to} in {walls[1]:.2f} s; files {files}")
+        want = {"train.log", "train.p1.log", "train.p2.log", "train.p3.log",
+                "args.yaml", "config.yaml", "static_last.ckpt",
+                "dynamic_last.ckpt", "resume.ckpt"}
+        require(sorted(p.name for p in runs.iterdir()) == ["kubric_777"]
+                and set(files) == want,
+                f"not one run directory with one writer's files: {files}")
+        ranks = []
+        for i, name in enumerate(["train.log"] + [f"train.p{r}.log"
+                                                  for r in (1, 2, 3)]):
+            text = (run / name).read_text()
+            require(f"at iteration {iters + 1}" in text
+                    and "'data': %d" % i in text,
+                    f"rank {i}'s log lacks its mesh row or the resume")
+            rows, dens, steps, launches = _rank_log(text)
+            require(len(steps) == 2 and len(launches) == 2,
+                    f"rank {i}: {len(steps)} step summaries")
+            ranks.append((rows, dens, steps, launches))
+            log(f"[scaling] (f) rank {i}: StepTimer p50 "
+                f"{[round(x['p50_ms'], 3) for x in steps]} ms (first run, "
+                f"resumed run), p90 {[round(x['p90_ms'], 3) for x in steps]}"
+                f"; launches of the first run {launches[0]}")
+        rows0, dens0 = ranks[0][:2]
+        log(f"[scaling] (f) rank 0: loss (iteration, static, dynamic, "
+            f"N_static) {rows0[::4]}; densifications {dens0}")
+        require(all(r[0] == rows0 for r in ranks),
+                "the ranks disagree on the logged losses")
+        require(all(r[1] == dens0 for r in ranks),
+                "the ranks disagree on the densifications' store sizes")
+        require([d.split(":")[0] for d in dens0] == ["600"]
+                and all("static_store" in d and "dynamic_store" in d
+                        for d in dens0),
+                f"both models did not densify at 600 alone: {dens0}")
+        require(all(math.isfinite(v) for row in rows0 for v in row[1:3])
+                and rows0[-1][0] == resume_to,
+                f"the losses are not finite to {resume_to}: {rows0[-3:]}")
+        launches = [r[3][0] for r in ranks]
+        require(all(v > 0 for ln in launches for v in ln.values()),
+                f"a rank never launched a kernel {launches}")
+        p50 = max(r[2][0]["p50_ms"] for r in ranks)
+        log(f"[scaling] (f) efficiency of the joint iteration: "
+            f"p50(one card, the cli phase) {one_card_p50:.3f} ms / "
+            f"p50(four cards, the slowest rank) {p50:.3f} ms = "
+            f"{one_card_p50 / p50:.4f} (each rank renders its own frame)")
+
+        back = build_training_run(load_yaml(str(run / "config.yaml")),
+                                  dirpath=str(data), capacity_factor=4.0,
+                                  device=device)
+        nxt = back.joint.load_resume(run / "resume.ckpt")
+        end = load_checkpoint(run / "static_last.ckpt")[0]
+        same = all(np.array_equal(v.cpu().numpy(), end["model"][k])
+                   for k, v in G.to_state_dict(
+                       back.joint.static.state.store).items())
+        log(f"[scaling] (f) the single-process port loads resume.ckpt at "
+            f"iteration {nxt}; the static store equals static_last.ckpt: "
+            f"{same}")
+        require(nxt == resume_to + 1 and same,
+                "the single-process port did not load the four-card resume "
+                "file")
+        frame = back.dynamic_dm.get_train_dset()[0]
+        errs, _ = check_concatenated(
+            back.joint, make_frame_batch(frame, 0, device), CLI_SIZE,
+            CLI_SIZE, "scaling (f)", seed=9)
+        del back
+        torch.cuda.empty_cache()
+
+        weights = root / "lpips_seeded.npz"
+        write_random_weights(weights)
+        task = Path(CLI_EVAL_YAMLS[0]).stem
+        _, secs = _cli(["rodygs_tpu_torch.pipelines.eval", "-c",
+                        CLI_EVAL_YAMLS[0], "-d", data, "-m", run.parent, "-t",
+                        task, "--eval_batch_size", 2, "--lpips_weights",
+                        weights], f"eval CLI {task} on the four-card run",
+                       timeout=300)
+        viz = yaml.safe_load((run.parent / task / "result.yaml")
+                             .read_text())["viz"]
+        log(f"[scaling] (f) eval CLI {task} on the four-card run's "
+            f"checkpoints {secs:.2f} s wall: {json.dumps(viz)}")
+        for key in ("psnr", "ssim", "lpipsa", "lpipsv"):
+            require(key in viz and math.isfinite(viz[key]),
+                    f"{task} on the four-card run: {key} missing or not "
+                    f"finite")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"[scaling] (f) part {time.perf_counter() - t_part:.2f} s")
+    return launches, errs
+
+
+def phase_scaling(device, joint_ms, cli_p50):
     """Phase 11: the multi-device and sort tools on the card. (a) the
     scaling sweep at world size 1 over NCCL at both workloads, (b) in a
     2-rank Gloo world sharing the card, (c) the replicated dynamic work at
     262,144 slots against `joint_ms` (the flagship phase's ms an
-    iteration), (d) the sort curve and one banded point; (e) with 4 cards
-    the four-card part, else one line saying why it did not run. Returns
-    (one-card launches {workload: {kernel: n}}, four-card per-rank
-    launches or None, {kernel: max_abs_err})."""
+    iteration), (d) the sort curve and one banded point; (e) and (f) with 4
+    cards the four-card parts (the train CLI's efficiency against
+    `cli_p50`, the `cli` phase's p50), else one line saying why they did
+    not run. Returns (one-card launches {workload: {kernel: n}}, four-card
+    per-rank launches of (e) and of (f) or None, {kernel: max_abs_err})."""
     import torch
     from rodygs_tpu_torch.tools import measure_dyn_replication as MDR
     from rodygs_tpu_torch.tools import sort_microbench as SM
@@ -3275,16 +3532,19 @@ def phase_scaling(device, joint_ms):
             and math.isfinite(banded) and banded > 0, "a sort was not timed")
     torch.cuda.empty_cache()
 
-    four, errs = None, {}
+    four, four_cli, errs = None, None, {}
     count = torch.cuda.device_count()
     if count >= 4:
         _, four, errs = scaling_four_card(device, profiles)
+        four_cli, e_cli = four_card_cli(device, cli_p50)
+        errs = {k: max(errs[k], e_cli[k]) for k in errs}
     else:
-        log(f"[scaling] (e) the four-card run was not run: {count} card(s) "
-            f"visible, it needs 4 on one host (README)")
+        for part in ("(e) the four-card run", "(f) the four-card train CLI"):
+            log(f"[scaling] {part} was not run: {count} card(s) visible, it "
+                f"needs 4 on one host (README)")
     log(f"[scaling] phase {time.perf_counter() - t_phase:.2f} s")
     one = {tag: s["meshes"][0]["launches"][0] for tag, s in sweeps.items()}
-    return one, four, errs
+    return one, four, four_cli, errs
 
 
 def main() -> int:
@@ -3312,6 +3572,7 @@ def main() -> int:
 
     errs = phase_check(device)
     trainer, batch_for, launches, iterations = phase_train(device)
+    launches_bench, e_bench = phase_bench(device)
     from rodygs_tpu_torch import kernel_check as KC
     from rodygs_tpu_torch.render import compact as C
     from rodygs_tpu_torch.render.rasterize import _default_tight
@@ -3338,7 +3599,7 @@ def main() -> int:
     launches_eval, launches_bands, e_eval = phase_eval(device, joint_end)
     del joint_end
     torch.cuda.empty_cache()
-    launches_cli, e_cli = phase_cli(device)
+    launches_cli, e_cli, cli_p50 = phase_cli(device)
     launches_multi, launches_torchrun, e_multi = phase_multi(
         device, trainer, batch_for)
     del trainer, batch_for
@@ -3346,8 +3607,8 @@ def main() -> int:
     launches_flagship, e_flagship, t_flagship, flagship_ms = phase_flagship(
         device)
     torch.cuda.empty_cache()
-    launches_scaling, launches_four_card, e_scaling = phase_scaling(
-        device, flagship_ms)
+    launches_scaling, launches_four_card, launches_four_cli, e_scaling = \
+        phase_scaling(device, flagship_ms, cli_p50)
 
     rows = []
     for name in kernels.KERNELS:
@@ -3355,6 +3616,8 @@ def main() -> int:
         t = timings[name]
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": launches[name],
+                     "launches_bench": {w: v[name] for w, v in
+                                        launches_bench.items()},
                      "launches_legacy": launches_legacy[name],
                      "launches_variants": launches_variants[name],
                      "launches_joint": launches_joint[name],
@@ -3370,8 +3633,12 @@ def main() -> int:
                                           launches_scaling.items()},
                      "launches_four_card": None if launches_four_card is None
                      else [r[name] for r in launches_four_card],
+                     "launches_four_card_cli": None
+                     if launches_four_cli is None
+                     else [r[name] for r in launches_four_cli],
                      "flagship": t_flagship[name],
                      "max_abs_err": max(errs[name], e512[name],
+                                        e_bench[name],
                                         e_var.get(name, 0.0),
                                         e1080.get(name, 0.0), e_joint[name],
                                         e_eval[name], e_cli[name],
@@ -3390,7 +3657,8 @@ def main() -> int:
             f"{t['plain_ms']:.4f} ms, library {t['library_ms']}, bound "
             f"{t['bound_ms']:.4f} ms ({t['bound_by']}), launches in "
             f"{iterations} steps "
-            f"{launches[name]}, in one legacy render "
+            f"{launches[name]}, in the bench windows "
+            f"{rows[-1]['launches_bench']}, in one legacy render "
             f"{launches_legacy[name]}, in the variants' four renders "
             f"{launches_variants[name]}, in "
             f"{JOINT_ITERATIONS[1] - JOINT_ITERATIONS[0] + 1} "
@@ -3402,7 +3670,9 @@ def main() -> int:
             f"{rows[-1]['launches_torchrun']}, in the flagship run's "
             f"training {launches_flagship[name]}, in the one-card scaling "
             f"baselines {rows[-1]['launches_scaling']}, per rank in the "
-            f"four-card sweeps {rows[-1]['launches_four_card']}")
+            f"four-card sweeps {rows[-1]['launches_four_card']}, per rank "
+            f"in the four-card train CLI "
+            f"{rows[-1]['launches_four_card_cli']}")
 
     print(card_name_and_limit())
     print(json.dumps({"kernels": rows}))

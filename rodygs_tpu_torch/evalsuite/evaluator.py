@@ -123,7 +123,9 @@ class RoDyGSEvaluator:
     def __init__(self, dirpath, static_datamodule, dynamic_datamodule,
                  out_path, static_ckpt_path, dynamic_ckpt_path,
                  camera_lr: float = -1, num_opts: int = -1,
+                 static_model=None, dynamic_model=None,
                  lpips_weights: str | None = None, device=None):
+        del static_model, dynamic_model    # accepted and ignored, as in JAX
         self.device = resolve_device(device)
         dev = self.device
         self.dirpath = dirpath

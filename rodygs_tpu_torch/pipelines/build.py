@@ -153,6 +153,22 @@ class TrainingRun:
             alive = psum(alive.reshape(1), self.mesh.axis("gauss"))
         return int(alive)
 
+    def _densify_summary(self, metrics: dict) -> str:
+        """Each densification's DensifyInfo and the store's alive count
+        after it (on a mesh, the same on every rank)."""
+        parts = []
+        for name, trainer in (("static", self.joint.static),
+                              ("dynamic", self.joint.dynamic)):
+            info = metrics.get(f"{name}_densify")
+            if info is None:
+                continue
+            alive = (self._static_alive() if name == "static"
+                     else int(G.num_alive(trainer.state.store)))
+            counts = " ".join(f"{k}={int(v)}"
+                              for k, v in info._asdict().items())
+            parts.append(f"{name}_store {counts} alive={alive}")
+        return "; ".join(parts)
+
     def train(self, resume: bool = False) -> RoDyGSTrainer:
         start_iter = 1
         resume_path = (self.logdir / "resume.ckpt"
@@ -204,6 +220,9 @@ class TrainingRun:
                     and it % self.checkpoint_every == 0):
                 self.joint.logdir = Path(self.logdir)
                 self.joint.save_resume(self.logdir / "resume.ckpt", it)
+            if "static_densify" in metrics or "dynamic_densify" in metrics:
+                self._log(f"densify at {it}: "
+                          + self._densify_summary(metrics))
             if it % self.log_freq == 0 or it == 1:
                 s_loss = float(metrics["static"]["loss"])
                 d_loss = (float(metrics["dynamic"]["loss"])

@@ -12,6 +12,7 @@ import the JAX package. Each runs as `python -m rodygs_tpu_torch.tools.<name>`:
   measure_dyn_replication the work a gauss-sharded dynamic step replicates
   multihost_smoke         the dry run over processes joined by RODYGS_*
   sort_microbench         the fragment sort at 1080p's capacities
+  bench                   the static train step's Mpix/s (bench.py's metric)
 
 The tools that compute run on `cuda` unless given `--device cpu`.
 """

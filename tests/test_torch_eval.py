@@ -694,3 +694,27 @@ def test_alignment_on_an_isotropic_checkpoint(tmp_path):
         got = ev._render_rgb_for_poseopt(cam)
     np.testing.assert_allclose(got.numpy(), dm.get_test_dset()[0]["image"],
                                atol=2e-5)
+
+
+@pytest.mark.parametrize("by", ["position", "name"])
+def test_evaluator_takes_the_model_arguments(tmp_path, by):
+    """The JAX evaluator accepts `static_model` and `dynamic_model` after
+    `num_opts` and ignores them; the port's constructor takes them at the
+    same positions, by position and by name, and builds the same evaluator
+    as without them."""
+    dm, _ = _static_only(tmp_path, big=0)
+    head = (str(tmp_path), dm, None, tmp_path / "out",
+            tmp_path / "static_last.ckpt", None, 5e-5, 2)
+    models = (object(), object())
+    if by == "position":
+        ev = tev.RoDyGSEvaluator(*head, *models, None, device="cpu")
+    else:
+        ev = tev.RoDyGSEvaluator(*head, static_model=models[0],
+                                 dynamic_model=models[1], lpips_weights=None,
+                                 device="cpu")
+    plain = _aligned_evaluator(tmp_path, dm)
+    assert ev.device == plain.device == torch.device("cpu")
+    assert ev.is_optimizable_cam and ev.skip_dynamic
+    assert ev.pose_optimizer.num_opts == plain.pose_optimizer.num_opts == 2
+    for a, b in zip(ev.static_store.params, plain.static_store.params):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())

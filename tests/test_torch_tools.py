@@ -75,7 +75,7 @@ IMG_TOL, DEPTH_TOL, GRAD_TOL = 2e-5, 2e-4, 5e-4
 TOOLS = ("flagship_1080p", "profile_step", "mast3r_unproject",
          "mast3r_driver", "run_mast3r", "convert_reference_ckpt",
          "img2video", "scaling_bench", "measure_dyn_replication",
-         "multihost_smoke", "sort_microbench")
+         "multihost_smoke", "sort_microbench", "bench")
 
 
 @pytest.fixture(autouse=True, scope="module")
