@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from ..utils.platform import resolve_device
+from ..utils.profiling import host_read, span
 
 
 class MotionNetConfig(NamedTuple):
@@ -77,7 +78,8 @@ def embed_time(t, multires: int, log_sampling: bool) -> torch.Tensor:
     whose broadcast XLA merges with pi's into f * (t * pi)."""
     t = torch.as_tensor(t, dtype=torch.float32)
     freqs = _frequencies(multires, log_sampling, t.device)
-    pi = torch.tensor(math.pi, dtype=torch.float32, device=t.device)
+    with host_read():
+        pi = torch.tensor(math.pi, dtype=torch.float32, device=t.device)
     if t.numel() == 1:
         tf = freqs * (t[..., None] * pi)
     else:
@@ -118,7 +120,7 @@ def _act(cfg: MotionNetConfig):
     return F.gelu   # exact (erf) GELU, the reference's nn.GELU()
 
 
-@torch.profiler.record_function("motion_mlp")
+@span("motion_mlp")
 def basis_from_embedding(params: dict, cfg: MotionNetConfig,
                          t_emb: torch.Tensor) -> torch.Tensor:
     """[..., t_embed_dim] -> [..., B, 7] motion bases."""

@@ -10,12 +10,15 @@ import math
 
 import torch
 
+from ..utils.profiling import host_read
 from .quaternion import quat_to_matrix
 
 
 def world_to_view(R: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
     """4x4 world->camera matrix from a w2c rotation R [3,3] and t [3]."""
-    bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=R.dtype, device=R.device)
+    with host_read():
+        bottom = torch.tensor([[0.0, 0.0, 0.0, 1.0]], dtype=R.dtype,
+                              device=R.device)
     return torch.cat([torch.cat([R, t[:, None]], dim=1), bottom], dim=0)
 
 

@@ -43,6 +43,7 @@ from typing import NamedTuple
 import torch
 
 from .. import kernels
+from ..utils.profiling import span
 from .binning import TILE, _clip_i32, tile_rect
 from .preprocess import Splats2D
 
@@ -762,9 +763,11 @@ class _CompositeCompact(torch.autograd.Function):
         f_kept_b = list(f_kept) if banded else [f_kept]
         rows_parts, unsorts = [], []
         for tab, bs, fk in zip(tables, bases_b, f_kept_b):
-            key, rec = expand_fragments(tab, bs, fk, tiles_x, db, n_rows)
+            with span("expand"):
+                key, rec = expand_fragments(tab, bs, fk, tiles_x, db, n_rows)
             payload = pack_bf16_payload(rec) if bf16_payload else rec
-            perm, rows = sort_fragments(key, payload)
+            with span("fragment_sort", device=True):
+                perm, rows = sort_fragments(key, payload)
             if bf16_payload:
                 rows = unpack_bf16_payload(rows, n_rows)
             if bwd_unsort == "gather":
@@ -777,8 +780,9 @@ class _CompositeCompact(torch.autograd.Function):
         # band tile ids ascend with b: the concatenation is the sorted order
         records = stack_records(torch.cat(rows_parts, dim=1) if banded
                                 else rows_parts[0])
-        out = rasterize_fwd_impl(records, tile_starts, tile_counts,
-                                 tile_id_offset, tiles_x, include_normal)
+        with span("tile_fwd"):
+            out = rasterize_fwd_impl(records, tile_starts, tile_counts,
+                                     tile_id_offset, tiles_x, include_normal)
         ctx.save_for_backward(records, tile_starts, tile_counts,
                               tile_id_offset, table.detach(), bases, f_kept,
                               out, *unsorts)
@@ -795,10 +799,11 @@ class _CompositeCompact(torch.autograd.Function):
 
         (records, tile_starts, tile_counts, tile_id_offset, table, bases,
          f_kept, out, *unsorts) = ctx.saved_tensors
-        d_records = rasterize_bwd_impl(records, tile_starts, tile_counts,
-                                       tile_id_offset, out,
-                                       gout.contiguous(), ctx.tiles_x,
-                                       ctx.n_rows == NUM_REC_ROWS)
+        with span("tile_bwd"):
+            d_records = rasterize_bwd_impl(records, tile_starts, tile_counts,
+                                           tile_id_offset, out,
+                                           gout.contiguous(), ctx.tiles_x,
+                                           ctx.n_rows == NUM_REC_ROWS)
         n_rows = ctx.n_rows
         tables = list(table) if ctx.banded else [table]
         bases_b = list(bases) if ctx.banded else [bases]
@@ -808,15 +813,17 @@ class _CompositeCompact(torch.autograd.Function):
         for b, (tab, bs, fk) in enumerate(zip(tables, bases_b, f_kept_b)):
             d_rec = d_records[:n_rows, b * cap_b:(b + 1) * cap_b]
             d_payload = pack_bf16_payload(d_rec) if ctx.bf16_payload else d_rec
-            if ctx.bwd_unsort == "gather":
-                d_presort = d_payload[:, unsorts[b]]
-            else:
-                # the exact inverse-permutation scatter
-                d_presort = torch.empty_like(d_payload)
-                d_presort[:, unsorts[b]] = d_payload
+            with span("fragment_unsort", device=True):
+                if ctx.bwd_unsort == "gather":
+                    d_presort = d_payload[:, unsorts[b]]
+                else:
+                    # the exact inverse-permutation scatter
+                    d_presort = torch.empty_like(d_payload)
+                    d_presort[:, unsorts[b]] = d_payload
             if ctx.bf16_payload:
                 d_presort = unpack_bf16_payload(d_presort, n_rows)
-            d_rows = segment_sum_rows(d_presort, tab, bs, fk)
+            with span("segsum"):
+                d_rows = segment_sum_rows(d_presort, tab, bs, fk)
             d_tables.append(torch.cat(
                 [d_rows, d_rows.new_zeros((tab.shape[0] - n_rows,
                                            d_rows.shape[1]))], dim=0))

@@ -59,9 +59,10 @@ import torch
 
 from ..parallel.collectives import all_gather
 from ..utils.platform import strict_fp32
+from ..utils.profiling import count, host_read, span
 from .binning import CHUNK, DUMMY_COLS, bin_splats, tile_grid
 from .camera import Camera
-from .compact import (build_binning, build_table, composite_compact,
+from .compact import (FCHUNK, build_binning, build_table, composite_compact,
                       fragment_capacity, padded_width, split_profile)
 from .preprocess import Splats2D, preprocess
 from .tile_kernel import (rasterize_tiles, rasterize_tiles_ranged,
@@ -169,6 +170,7 @@ def _gather_tiles(local_out, axis, num_tiles: int):
     return all_gather(local_out, axis, dim=0)[:num_tiles]
 
 
+@span("render")
 def render(
     means3d: torch.Tensor,
     shs: torch.Tensor,
@@ -214,13 +216,16 @@ def render(
         max_fragments = default_fragment_budget(
             image_width, image_height, means3d.shape[0])
     tiles_x, tiles_y = tile_grid(image_width, image_height)
-    splats = preprocess(
-        means3d, scaling, rotation, opacity, shs, sh_degree, camera,
-        image_width, image_height, scale_modifier, alive=alive,
-        colors_precomp=colors_precomp, pose_grad_only=pose_grad_only)
+    with span("preprocess"):
+        splats = preprocess(
+            means3d, scaling, rotation, opacity, shs, sh_degree, camera,
+            image_width, image_height, scale_modifier, alive=alive,
+            colors_precomp=colors_precomp, pose_grad_only=pose_grad_only)
     if means2d_offset is not None:
-        scale = torch.tensor([[0.5 * image_width], [0.5 * image_height]],
-                             dtype=torch.float32, device=means3d.device)
+        with host_read():
+            scale = torch.tensor([[0.5 * image_width],
+                                  [0.5 * image_height]],
+                                 dtype=torch.float32, device=means3d.device)
         splats = splats._replace(mean2d=splats.mean2d + means2d_offset * scale)
     if gauss_axis is not None:
         splats = _gather_splats(splats, gauss_axis)
@@ -231,8 +236,12 @@ def render(
         capacity = fragment_capacity(n, fragment_profile)
         tight = _default_tight(num_tiles) if tight_rect is None else tight_rect
         bands = _band_count(fragment_profile, sort_bands, tiles_y)
-        cb = build_binning(splats, tiles_x, tiles_y, capacity, tight=tight,
-                           bands=bands)
+        with span("binning"):
+            cb = build_binning(splats, tiles_x, tiles_y, capacity,
+                               tight=tight, bands=bands)
+        count("fragments", cb.num_fragments)
+        count("fragment_slots", cb.bases.numel() * FCHUNK)
+        count("dropped_fragments", cb.dropped)
         nw = padded_width(n)
         rec13 = torch.cat([
             splats.mean2d,                 # rows 0:2

@@ -3,7 +3,7 @@ it. Port of `scripts/profile_step.py`.
 
     python -m rodygs_tpu_torch.tools.profile_step [--steps 15] [--windows 5]
         [--width 512 --height 512 --n 100000 --profile lean] [--fwd_only]
-        [--no_trace] [--min_ms 0.3] [--device cpu]
+        [--no_trace] [--trace_dir DIR] [--min_ms 0.3] [--device cpu]
 
 By default the `bench.py` workload (512x512, 100k gaussians, L1 + D-SSIM,
 pose gradients); `--width 1920 --height 1080 --n 240000` is the flagship
@@ -13,21 +13,27 @@ iterations and prints their median as
     [steady] <ms> ms/step  (<Mpix/s> Mpix/s fwd+bwd+adam)  settled_profile=<p> last_demand=<fragments>
 
 (the line `scripts/ab_report.py` tabulates), then, unless `--no_trace`,
-runs `--steps` more iterations under `torch.profiler` and prints the
-device operators whose total time is at least `--min_ms`, and the device's
-busy time per step. `--fwd_only` times forward renders instead (capacity
+runs `--steps` more iterations under `utils/profiling.trace` (a Chrome
+trace and the program's spans and counters, `trace.json` and `spans.json`
+in `--trace_dir`, a new temporary directory by default) and prints the
+device operators whose total time is at least `--min_ms`, the device's
+busy time per step, and from `spans.json` each span's host ms per step
+(self ms beside it; device ms for the spans that time the device) and the
+counters. `--fwd_only` times forward renders instead (capacity
 probe-fitted as the evaluator fits it): ms per frame, FPS and Mpix/s.
 
 The JAX script's persistent compile cache has no counterpart (PyTorch
 compiles nothing per process but the CUDA kernels, which
-`rodygs_tpu_torch/_build/` keeps), nor its trace directory: the profile is
-read from `torch.profiler` in memory.
+`rodygs_tpu_torch/_build/` keeps).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -41,6 +47,7 @@ from ..train.optim import CameraPoses
 from ..train.trainer_static import (FrameBatch, StaticTrainerConfig,
                                     ThreeDGSTrainer)
 from ..utils.platform import device_label, resolve_device
+from ..utils.profiling import trace
 
 FOV = 0.9
 N_FRAMES = 8
@@ -141,6 +148,27 @@ def top_device_ops(prof, steps: int, min_ms: float) -> float:
     return busy / steps
 
 
+def print_spans(spans_json: Path) -> None:
+    """Each span's host ms per step (self ms, device ms where timed), and
+    the counters, from a `spans.json` of `utils/profiling.trace`."""
+    rec = json.loads(spans_json.read_text())
+    n = max(rec["iterations"], 1)
+    print(f"\n== program spans per step over {rec['iterations']} steps "
+          f"({spans_json}) ==")
+    for name, s in sorted(rec["spans"].items(), key=lambda kv:
+                          -kv[1]["host_ms"]):
+        dev = ("" if s["device_ms"] is None
+               else f"  device {s['device_ms'] / n:9.3f} ms")
+        print(f"{name} {s['host_ms'] / n:9.3f} ms host, self "
+              f"{s['self_host_ms'] / n:9.3f} ms, x{s['calls'] / n:g}{dev}")
+    counters = rec["counters"]
+    for name, total in sorted(counters.items()):
+        print(f"[counter] {name} {total / n:g} per step")
+    if counters.get("fragment_slots"):
+        fill = 100.0 * counters["fragments"] / counters["fragment_slots"]
+        print(f"[fragment fill {fill:.2f}% of the sorted slots]", flush=True)
+
+
 def run_fwd_only(args, trainer) -> float:
     """Forward-only renders of the scene (a render service's view): the
     capacity probe-fitted as the evaluator fits it (escalate until clean,
@@ -219,17 +247,15 @@ def main(args) -> float:
           f"last_demand={int(m['num_fragments'])}", flush=True)
 
     if not args.no_trace:
-        from torch.profiler import ProfilerActivity, profile as tprofile
-
-        activities = [ProfilerActivity.CPU]
-        if device.type == "cuda":
-            activities.append(ProfilerActivity.CUDA)
-        with tprofile(activities=activities) as prof:
+        logdir = Path(args.trace_dir or tempfile.mkdtemp(
+            prefix="profile_step_"))
+        with trace(str(logdir)) as prof:
             for i in range(args.steps):
                 m = trainer.train_iteration(batch_for(i), 5000 + i)
             float(m["loss"])
             _sync(device)
         top_device_ops(prof, args.steps, args.min_ms)
+        print_spans(logdir / "spans.json")
     return med
 
 
@@ -244,6 +270,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serving throughput: forward-only renders (FPS)")
     p.add_argument("--no_trace", action="store_true",
                    help="timing only (A/B runs; skips the profiler)")
+    p.add_argument("--trace_dir", default=None,
+                   help="where trace.json and spans.json go (default: a "
+                        "new temporary directory)")
     p.add_argument("--min_ms", type=float, default=0.3)
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--height", type=int, default=512)

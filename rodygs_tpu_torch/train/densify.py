@@ -28,6 +28,7 @@ from ..models.gaussians import (GaussianStore, get_opacity, get_scaling,
                                 inverse_sigmoid)
 from ..ops.quaternion import quat_normalize, quat_to_matrix
 from ..utils.platform import resolve_device
+from ..utils.profiling import host_read, span
 from .optim import tree_map
 
 
@@ -83,7 +84,7 @@ def _rank_free_slots(free_mask: torch.Tensor) -> torch.Tensor:
 
 
 @torch.no_grad()
-@torch.profiler.record_function("densify_and_prune")
+@span("densify_and_prune")
 def densify_and_prune(
     store: GaussianStore,
     aux: dict[str, Any],
@@ -191,7 +192,8 @@ def densify_and_prune(
         for name, tree in aux.items()
     }
     new_alive = torch.cat([keep_mask, keep_mask.new_zeros((1,))])
-    new_alive[dests] = True
+    with host_read():
+        new_alive[dests] = True
     new_alive = new_alive[:c]
 
     new_store = GaussianStore(params=new_params, alive=new_alive,

@@ -22,6 +22,7 @@ from ..ops.image import (charbonnier_loss, l1_loss, pearson_depth_loss,
                          pearson_rows, ssim)
 from ..ops.knn import knn, knn_gather
 from ..ops.quaternion import quat_to_matrix
+from ..utils.profiling import host_read, span
 
 
 def _safe_norm(x, dim=-1, eps=1e-12):
@@ -141,7 +142,7 @@ def rigidity(ctx, scale: float = 2.0, K: int = 8, sim_metric: str = "l2",
     pts = xyz[idx] + transl[idx]
     # the KNN finds neighbour indices only, without gradient; the K squared
     # distances are recomputed from the gathered positions, differentiably
-    with torch.profiler.record_function("rigidity_knn"):
+    with span("rigidity_knn", device=True):
         _, nn_idx = knn(pts.detach(), pts.detach(), k=K, valid_mask=valid)
     nn_pts = knn_gather(pts, nn_idx)  # [S, K, 3]
     dists = torch.sum((pts[:, None, :] - nn_pts) ** 2, dim=-1)  # [S, K]
@@ -247,7 +248,8 @@ def motion_basis_reg(ctx, transl_degree: int = 0, rot_degree: int = 0,
     bank = np.asarray(_COEFF_BANK[freq_div_mode], np.float32)
     if freq_div_mode != "vanilla":
         bank = bank / bank.max() * 1.3
-    reg_coeff = torch.tensor(bank, device=table.device)[: table.shape[1]]
+    with host_read():
+        reg_coeff = torch.tensor(bank, device=table.device)[: table.shape[1]]
 
     transl = table[..., :3]  # [T, B, 3]
     rotq = table[..., 3:]
@@ -315,6 +317,7 @@ class MultiLoss:
                     f"loss {t.fn_name!r} is not ported yet (registered: "
                     f"{sorted(_LOSS_REGISTRY)})")
         self.terms = tuple(terms)
+        self._term_spans = tuple(f"loss.{t.name}" for t in self.terms)
 
     @classmethod
     def from_config(cls, loss_configs: Sequence[dict]) -> "MultiLoss":
@@ -345,12 +348,15 @@ class MultiLoss:
         device = ctx["pred_img"].device
         if ctx.get("rng") is None:
             ctx = {**ctx, "rng": torch.Generator(device=device).manual_seed(0)}
-        total = torch.zeros((), device=device)
-        loss_dict = {}
-        for term, on in zip(self.terms, active):
-            if not on:
-                continue
-            val = _LOSS_REGISTRY[term.fn_name](ctx, **dict(term.params))
-            loss_dict[term.name] = val
-            total = total + term.weight * val
+        with span("loss"):
+            total = torch.zeros((), device=device)
+            loss_dict = {}
+            for term, on, name in zip(self.terms, active, self._term_spans):
+                if not on:
+                    continue
+                with span(name):
+                    val = _LOSS_REGISTRY[term.fn_name](ctx,
+                                                       **dict(term.params))
+                loss_dict[term.name] = val
+                total = total + term.weight * val
         return total, loss_dict

@@ -20,6 +20,8 @@ from typing import Any, NamedTuple
 
 import torch
 
+from ..utils.profiling import host_read
+
 
 class AdamState(NamedTuple):
     mu: Any              # first moments (same NamedTuple type as params)
@@ -61,10 +63,12 @@ def adam_update(grads: Any, state: AdamState, params: Any, lr: Any,
     params, moments and count all stay frozen."""
     count = state.count + 1
     t = count.to(torch.float32)
-    c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
-                                      device=t.device), t)
-    c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
-                                      device=t.device), t)
+    with host_read():
+        b1_t = torch.tensor(b1, dtype=torch.float32, device=t.device)
+    with host_read():
+        b2_t = torch.tensor(b2, dtype=torch.float32, device=t.device)
+    c1 = 1.0 - torch.pow(b1_t, t)
+    c2 = 1.0 - torch.pow(b2_t, t)
     mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
     nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state.nu, grads)
     if not isinstance(lr, (tuple, dict)):
@@ -113,10 +117,12 @@ def sparse_row_adam_update(grads: Any, state: AdamState, params: Any, lr: Any,
     mask = row_mask.to(torch.bool)
     count = state.count + mask.to(torch.int32)               # [F]
     t = count.to(torch.float32)
-    c1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
-                                      device=t.device), t)
-    c2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
-                                      device=t.device), t)
+    with host_read():
+        b1_t = torch.tensor(b1, dtype=torch.float32, device=t.device)
+    with host_read():
+        b2_t = torch.tensor(b2, dtype=torch.float32, device=t.device)
+    c1 = 1.0 - torch.pow(b1_t, t)
+    c2 = 1.0 - torch.pow(b2_t, t)
 
     def rows(x, like):   # [F] against [F, D...]
         return x.reshape(x.shape + (1,) * (like.dim() - 1))

@@ -30,6 +30,7 @@ from ..models import gaussians as G
 from ..models import motion as M
 from ..ops.schedules import expon_lr
 from ..utils.platform import resolve_device
+from ..utils.profiling import span
 from ..render.rasterize import render
 from .densify import DensifyStats, densify_and_prune, init_stats
 from .losses import MultiLoss
@@ -227,8 +228,9 @@ class DynTrainer:
         }
         total, loss_dict = self.loss(ctx, active)
         leaves = tree_leaves(params) + [offset]
-        grads = torch.autograd.grad(total * loss_scale, leaves,
-                                    allow_unused=True)
+        with span("backward"):
+            grads = torch.autograd.grad(total * loss_scale, leaves,
+                                        allow_unused=True)
         grads = iter([torch.zeros_like(x) if g is None else g
                       for x, g in zip(leaves, grads)])
         g_params = tree_map(lambda _: next(grads), params)

@@ -39,6 +39,7 @@ import torch
 from ..models import gaussians as G
 from ..parallel.multihost import barrier, is_primary, wait_for_path
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
+from ..utils.profiling import span
 from .densify import accumulate_stats
 from .optim import CameraPoses
 from .trainer_dynamic import DynTrainer, DynTrainState
@@ -86,17 +87,20 @@ class RoDyGSTrainer:
         total, aux, (g_params, g_offset) = dyn.loss_and_grads(
             dyn_state, static_store, poses, batch, active, sh_degree,
             use_deform, fragment_profile)
-        # only the dynamic slice of the screen gradients feeds its stats
-        new_stats = accumulate_stats(
-            dyn_state.stats, g_offset[:, cs:],
-            aux["radii"][cs:].to(torch.float32), aux["visible"][cs:])
-        new_state = dyn.apply_update(dyn_state, g_params, new_stats, iteration)
+        with span("optim"):
+            # only the dynamic slice of the screen gradients feeds its stats
+            new_stats = accumulate_stats(
+                dyn_state.stats, g_offset[:, cs:],
+                aux["radii"][cs:].to(torch.float32), aux["visible"][cs:])
+            new_state = dyn.apply_update(dyn_state, g_params, new_stats,
+                                         iteration)
         metrics = {"loss": total, "overflow": aux["overflow"],
                    "dropped": aux["dropped"],
                    "num_fragments": aux["num_fragments"],
                    **aux["loss_dict"]}
         return new_state, metrics
 
+    @span("iteration")
     def train_iteration(self, static_batch: FrameBatch,
                         dynamic_batch: FrameBatch | None,
                         iteration: int) -> dict[str, Any]:

@@ -42,6 +42,7 @@ from ..render.compact import (BAND_KEEP_MARGIN, bands_decision, bands_viable,
                               profile_for_demand, split_profile)
 from ..render.rasterize import render
 from ..utils.platform import resolve_device
+from ..utils.profiling import count, host_read, span
 from .densify import (DensifyStats, accumulate_stats, densify_and_prune,
                       init_stats, reset_opacity)
 from .losses import MultiLoss
@@ -203,7 +204,9 @@ def static_loss_and_grads(cfg: StaticTrainerConfig, loss: MultiLoss,
     }
     total, loss_dict = loss(ctx, active)
     leaves = [*params, *poses, offset]
-    grads = torch.autograd.grad(total * loss_scale, leaves, allow_unused=True)
+    with span("backward"):
+        grads = torch.autograd.grad(total * loss_scale, leaves,
+                                    allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g
              for x, g in zip(leaves, grads)]
     n_p = len(params)
@@ -274,16 +277,26 @@ class EscalationPoller:
         fit = fit_capacity(capacity, demand)
         return fit, bands_decision(capacity, fit, demand)
 
+    @span("poller")
     def poll(self, iteration: int, metrics: dict, capacity: int, profile):
         """Returns the new fragment profile, or None."""
+        new = self._poll(iteration, metrics, capacity, profile)
+        if new is not None:
+            count("escalations", 1)
+        return new
+
+    def _poll(self, iteration: int, metrics: dict, capacity: int, profile):
         if not escalation_poll_due(iteration):
             return None
         probe = self._probe if self._probe is not None else metrics
         self._probe = metrics
         prof, bands = split_profile(profile)
         cur = fragment_capacity(capacity, prof)
-        demand = int(probe["num_fragments"])
-        if bool(probe["overflow"]):
+        with host_read():
+            demand = int(probe["num_fragments"])
+        with host_read():
+            overflow = bool(probe["overflow"])
+        if overflow:
             self._shrink_fit = None
             self._bands_pending = None
             self._initial_fit_pending = False
@@ -410,12 +423,13 @@ class ThreeDGSTrainer:
                                       sh_degree, fragment_profile)
         total, aux, (g_params, g_poses, g_offset) = self.loss_and_grads(
             state, batch, active, sh_degree, fragment_profile)
-        new_stats = accumulate_stats(
-            state.stats, g_offset, aux["radii"].to(torch.float32),
-            aux["visible"])
-        new_state = apply_static_update(
-            self.cfg, self.spatial_lr_scale, state, g_params, g_poses,
-            new_stats, iteration, batch.frame_idx)
+        with span("optim"):
+            new_stats = accumulate_stats(
+                state.stats, g_offset, aux["radii"].to(torch.float32),
+                aux["visible"])
+            new_state = apply_static_update(
+                self.cfg, self.spatial_lr_scale, state, g_params, g_poses,
+                new_stats, iteration, batch.frame_idx)
         metrics = {"loss": total, "overflow": aux["overflow"],
                    "dropped": aux["dropped"],
                    "num_fragments": aux["num_fragments"],
@@ -456,6 +470,7 @@ class ThreeDGSTrainer:
             self.active_sh_degree = G.sh_degree_up(
                 self.active_sh_degree, self.cfg.sh_degree)
 
+    @span("iteration")
     def train_iteration(self, batch: FrameBatch, iteration: int) -> dict:
         active = self.loss.active_set(iteration)
         self.state, metrics = self.step(
