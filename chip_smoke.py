@@ -4,11 +4,12 @@
     python3 chip_smoke.py
 
 Phases (any failure exits non-zero; no phase is caught and skipped):
-  1. build   — compile the four CUDA kernels of rodygs_tpu_torch/csrc (and
-               the empty kernel of launch_floor.cu) from source (one nvcc
-               per file, in parallel); print the seconds, ptxas's registers
-               and shared memory, and the blocks of every kernel's
-               instantiations that one SM holds (the CUDA runtime's count).
+  1. build   — compile the four CUDA kernels of rodygs_tpu_torch/csrc, the
+               KNN (knn.cu) and the empty kernel of launch_floor.cu from
+               source (one nvcc per file, in parallel); print the seconds,
+               ptxas's registers and shared memory, and the blocks of every
+               kernel's instantiations that one SM holds (the CUDA
+               runtime's count).
   2. check   — on a 128x128, 5k-gaussian render's own binning (tight=True
                and tight="rows"), hold every kernel against its plain
                PyTorch version on the card, and a full CUDA render against
@@ -67,7 +68,13 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
                launch, events around the one launch). The train step lies
                between the two: expand's table and segsum's rows were
                written just before by kernels that move more than the L2
-               holds.
+               holds. Then the KNN kernel against its plain version at the
+               benchmark cell's rigidity sample (131,072 x 131,072, K 8,
+               the last 11,072 targets ruled out), and at the scale
+               prior's K 4 over the same points, all valid: at most 0.1%
+               of the rows with another neighbour set, each a near-tie of
+               the K-th; both timed, beside the bound of the least FP32
+               operations (three FMAs and a compare a valid pair).
   5a. variants — on the trained state of phase 3 at 512x512: the legacy
                path (`render(binning_mode="legacy")`: broadcast-tier
                binning, records gather, the tile kernels) forward and
@@ -111,7 +118,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
                settled fragment profiles; requires finite losses, a falling
                dynamic loss, a moving motion model, clone + split > 0 in the
                static store, alive counts that fit the DensifyInfo, no
-               overflow at the end and every kernel launched. Then the four
+               overflow at the end, every kernel launched and the KNN
+               once in each rigidity iteration. Then the four
                kernels against their plain versions on frame 0's
                concatenated static + deformed dynamic set, and
                torch.profiler over 5 joint iterations (one with rigidity)
@@ -206,8 +214,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
                held-out view's `eval_w_align` cut to 200 steps
                (FLAGSHIP_ARGS). Launch counters are zeroed just before the
                tool's `train` and read just after it, and must equal two
-               tile_fwd / tile_bwd launches an iteration and one expand /
-               segsum launch a sort band of each render. Requires finite
+               tile_fwd / tile_bwd launches an iteration, one expand /
+               segsum launch a sort band of each render and one KNN launch
+               a rigidity iteration. Requires finite
                window losses, a static one that falls from the first
                window to the last, no drop at the end nor in either PSNR
                render, the held-out view's L2 falling over the alignment;
@@ -219,7 +228,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
                device time and bound on that render, torch.profiler
                over iterations 304-306 (305 a rigidity iteration: the
                `motion_mlp` / `rigidity_knn` ranges, each kernel's device
-               time a launch) and one densification call of each model.
+               time a launch, the KNN's in its rigidity iteration) and one
+               densification call of each model.
  11. scaling — the multi-device and sort tools (rodygs_tpu_torch/tools/).
                (a) A 1-rank NCCL world in this process: at 512x512 / 100,000
                (the JAX scaling script's default) and at 1920x1080 /
@@ -280,7 +290,10 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
                {"ok": true, "device": ...}. The tile kernels' rows carry
                `launches_legacy` (one legacy render of phase 5a),
                `launches_variants` (its four variant renders) and
-               `legacy_ms`, their times on the legacy records.
+               `legacy_ms`, their times on the legacy records. Beside
+               them, `knn`: the KNN's times at the cell's sample (phase
+               5), its launches in phases 6 and 10 and its device time a
+               flagship rigidity iteration.
 
 Without CUDA, or run from a directory without the package, it exits with
 a non-zero code before printing any result. Imports neither JAX nor the
@@ -330,7 +343,8 @@ FWD_OPS_PER_CONTRIB = {True: 38, False: 31}
 BWD_OPS_PER_CONTRIB = {True: 89, False: 76}
 
 # threads of a block of the fragment kernels (one block per 512-slot chunk)
-FRAGMENT_BLOCK_THREADS = {"expand": 512, "segsum": 256}
+# and of the KNN (two queries a thread)
+FRAGMENT_BLOCK_THREADS = {"expand": 512, "segsum": 256, "knn": 256}
 
 SOURCES = {
     "expand": ("rodygs_tpu_torch/csrc/expand.cu",
@@ -693,6 +707,82 @@ def time_kernels(s):
     return res
 
 
+# The KNN at the benchmark cell's rigidity sample (kubric512.joint: half of
+# a 262,144-slot store, 120,000 alive, alive slots first), K 8. The least
+# FP32 work the function needs, an FMA counting two: per (query, valid
+# target) pair three FMAs (|t|^2 - 2 q.t, |q|^2 moved into the limit) and
+# the compare with the K-th; per query and per valid target its squared
+# norm, a product and two FMAs.
+KNN_CELL = (131072, 120000, 8)
+KNN_OPS_PER_PAIR = 7
+KNN_OPS_PER_POINT = 5
+
+
+def rigidity_launches(trainer, iterations):
+    """The KNN launches `iterations` of a dynamic trainer make: one in each
+    iteration whose rigidity term is active."""
+    return sum(t.is_active(it) for t in trainer.loss.terms
+               if t.fn_name == "RigidityLoss" for it in iterations)
+
+
+def time_knn(device):
+    """The KNN kernel against its plain version at the cell's rigidity
+    sample (KNN_CELL: seeded normal points, the trailing slots ruled out,
+    K 8), and at the scale prior's K 4 over the same points, every one
+    valid, as scene creation asks: at most 0.1% of the rows may hold
+    another neighbour set, each of them a near-tie of the K-th (1e-5
+    relative), the other rows' distances within 1e-5. Then both timed (CUDA
+    events), and the bound: the least operations (KNN_OPS_PER_PAIR a valid
+    pair, KNN_OPS_PER_POINT a point) at the FP32 rate (the bytes are ~2 MB).
+    Returns dict(ms, plain_ms, bound_ms, bound_by, rows_differ) for K 8 and
+    the same keys with the suffix _k4 for K 4."""
+    import torch
+    from rodygs_tpu_torch.ops import knn as KNN
+
+    n, alive, k8 = KNN_CELL
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res = {}
+    try:
+        gen = torch.Generator(device=device).manual_seed(5)
+        pts = torch.randn((n, 3), generator=gen, device=device)
+        for k, valid, n_valid, suffix in (
+                (k8, torch.arange(n, device=device) < alive, alive, ""),
+                (4, None, n, "_k4")):
+            d, i = KNN.knn(pts, pts, k, valid)
+            pd, pi = KNN.knn_plain(pts, pts, k, valid)
+            differ = (torch.sort(i, dim=1).values
+                      != torch.sort(pi, dim=1).values).any(dim=1)
+            rows = int(differ.sum())
+            kth = float(((d[differ, -1] - pd[differ, -1]).abs()
+                         / pd[differ, -1]).max()) if rows else 0.0
+            same_err = float(((d[~differ] - pd[~differ]).abs()
+                              / pd[~differ].clamp(min=1e-6)).max())
+            log(f"[knn] {n} x {n}, k {k}, {n - n_valid} trailing targets "
+                f"ruled out: {rows} rows with another neighbour set than the "
+                f"plain version's (K-th distances within {kth:.3g} relative "
+                f"there), the other rows' distances within {same_err:.3g}")
+            require(rows <= n // 1000 and kth <= 1e-5 and same_err <= 1e-5,
+                    f"the KNN kernel (k {k}) departs from its plain version")
+            del d, i, pd, pi
+            ms = time_ms(lambda: KNN.knn(pts, pts, k, valid), reps=10)
+            plain_ms = time_ms(lambda: KNN.knn_plain(pts, pts, k, valid),
+                               reps=2)
+            b, by = bound(n * 3 * 4 * 2 + n + n * k * 8,
+                          KNN_OPS_PER_PAIR * n * n_valid
+                          + KNN_OPS_PER_POINT * (n + n_valid))
+            log(f"[knn] k {k}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"bound {b:.4f} ms ({by}; {KNN_OPS_PER_PAIR} FP32 operations "
+                f"a valid pair at {PEAK_FP32_FLOPS / 1e12:.0f} TFLOP/s), "
+                f"kernel at {ms / b:.2f}x its bound")
+            res |= {f"ms{suffix}": ms, f"plain_ms{suffix}": plain_ms,
+                    f"bound_ms{suffix}": b, f"bound_by{suffix}": by,
+                    f"rows_differ{suffix}": rows}
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    return res
+
+
 def occupancy_lines(build_log):
     """ptxas's register, spill and shared-memory lines of every kernel, and
     the blocks of each kernel's instantiations one SM holds: the runtime's
@@ -719,6 +809,7 @@ def occupancy_lines(build_log):
                 for rows in (0, 1) for wide in (0, 1)]
     variants += [("segsum", wide, f"n_rows={13 if wide else 10}")
                  for wide in (0, 1)]
+    variants += [("knn", k == 8, f"k={k}") for k in (4, 8)]
     for name, variant, text in variants:
         blocks = kernels.blocks_per_sm(name, variant)
         require(blocks > 0, f"{name} does not fit an SM")
@@ -1409,7 +1500,7 @@ def device_summary(prof, steps, wall_ms, tag, top=14):
         f"device busy {total_ms:.3f} ms/step = "
         f"{100 * total_ms / wall_ms:.1f}% of wall")
     ours = ("expand_kernel", "tile_fwd_kernel", "tile_bwd_kernel",
-            "segsum_kernel")
+            "segsum_kernel", "knn_kernel")
     ranked = sorted(events, key=dev_us, reverse=True)
     for e in ranked[:top] + [e for e in ranked[top:]
                              if any(k in e.key for k in ours)]:
@@ -1813,6 +1904,10 @@ def phase_joint(device, **scene):
             not bool(m["dynamic"]["overflow"]), "fragment overflow at the end")
     require(all(launches[k] > 0 for k in kernels.KERNELS),
             f"a kernel never launched on the joint path: {launches}")
+    knn_expected = rigidity_launches(dyn, range(first, last + 1))
+    require(launches["knn"] == knn_expected,
+            f"the KNN launched {launches['knn']} times in "
+            f"{knn_expected} rigidity iterations")
 
     # the four kernels against their plain versions on the concatenated
     # static + deformed dynamic set of frame 0 (the dynamic step's input)
@@ -2154,7 +2249,7 @@ def render_sort_bands(device, n=240_000, width=1920, height=1080):
     launches = dict(kernels.LAUNCHES)
     log(f"[eval bands] launches in the three renders: {launches}")
     require(launches == dict(expand=1 + 2 + 4, tile_fwd=3, tile_bwd=3,
-                             segsum=1 + 2 + 4),
+                             segsum=1 + 2 + 4, knn=0),
             "expand and segsum do not launch once a band")
     ref = outs[1]
     for bands in (2, 4):
@@ -2414,7 +2509,7 @@ def phase_cli(device):
                 and np.mean([v for _, v in losses[-3:]]) < losses[0][1],
                 f"the static loss did not fall: {losses}")
         require(all(launches["train"][k] >= 2 * CLI_ITERATIONS
-                    for k in launches["train"]),
+                    for k in SOURCES),
                 f"a kernel launched less than twice an iteration: "
                 f"{launches['train']}")
         for name in ("static_last.ckpt", "dynamic_last.ckpt", "resume.ckpt"):
@@ -2547,8 +2642,8 @@ def multi_rank(rank, meshes, steps, joint_its, device="cuda", bench_kw=None,
         kernels.reset_launches()
         r = fn()
         sync()
-        for k, v in kernels.LAUNCHES.items():
-            launches[k] += v
+        for k in launches:
+            launches[k] += kernels.LAUNCHES[k]
         return r
 
     for shape in meshes:
@@ -2753,7 +2848,7 @@ def multi_torchrun_cli(device):
             log(f"[multi] (d) rank {i}: StepTimer p50 "
                 f"{[round(x['p50_ms'], 3) for x in steps]} ms (two ranks "
                 f"sharing one card); launches of the first run {launches[-1]}")
-        require(all(v > 0 for v in launches[0].values()),
+        require(all(launches[0][k] > 0 for k in SOURCES),
                 f"a kernel never launched under torchrun: {launches[0]}")
         back = build_training_run(load_yaml(str(run / "config.yaml")),
                                   dirpath=str(data), capacity_factor=4.0,
@@ -2922,8 +3017,11 @@ def phase_flagship(device):
 
     profiles = hist["iteration_profiles"]
     bands = sum(split_profile(p)[1] for pair in profiles for p in pair)
+    first_it = (hist["resumed_from"] or 0) + 1
     expected = {"expand": bands, "segsum": bands,
-                "tile_fwd": 2 * len(profiles), "tile_bwd": 2 * len(profiles)}
+                "tile_fwd": 2 * len(profiles), "tile_bwd": 2 * len(profiles),
+                "knn": rigidity_launches(joint.dynamic, range(
+                    first_it, first_it + len(profiles)))}
     log(f"[flagship] train: {len(profiles)} iterations in {train_s:.2f} s, "
         f"step_ms_median {res['step_ms_median']} "
         f"(windows {res['window_ms']} ms), "
@@ -3006,6 +3104,16 @@ def phase_flagship(device):
         log(f"[flagship profile] {name}: {n} launches, "
             f"{per_launch[name]:.4f} ms of device time a launch (the mean "
             f"over these iterations' static-only and concatenated renders)")
+    hits = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "knn_kernel" in e.key]
+    n_knn = sum(e.count for e in hits)
+    knn_ms = sum(dev_us(e) for e in hits) / 1e3
+    log(f"[flagship profile] knn: {n_knn} launches, {knn_ms:.4f} ms of "
+        f"device time over iterations {first}-{last}: the KNN of a rigidity "
+        f"iteration")
+    require(n_knn == rigidity_launches(joint.dynamic, range(first, last + 1)),
+            f"the KNN launched {n_knn} times over iterations {first}-{last}")
     for name, trainer in (("static", joint.static), ("dynamic", joint.dynamic)):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -3018,10 +3126,11 @@ def phase_flagship(device):
     log(f"[flagship] peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f}"
         f" GiB allocated; phase {time.perf_counter() - t_phase:.2f} s; card "
         f"{res['device']}")
-    return launches, errs, {k: dict(ms=on_render[k], bound_ms=bounds[k][0],
-                                    bound_by=bounds[k][1],
-                                    train_ms_per_launch=per_launch[k])
-                            for k in bounds}, res["step_ms_median"]
+    timings = {k: dict(ms=on_render[k], bound_ms=bounds[k][0],
+                       bound_by=bounds[k][1], train_ms_per_launch=per_launch[k])
+               for k in bounds}
+    timings["knn"] = dict(train_ms_per_launch=knn_ms / max(n_knn, 1))
+    return launches, errs, timings, res["step_ms_median"]
 
 
 # --------------------------------------------------------------------------
@@ -3117,8 +3226,8 @@ def scaling_one_rank(device):
                 device, width, height, n, SCALING_ITERS, profile)))
             log_sweep(f"(a) {tag}", summary)
             base = summary["meshes"][0]
-            require(all(v == SCALING_ITERS + 1
-                        for v in base["launches"][0].values()),
+            require(all(base["launches"][0][k] == SCALING_ITERS + 1
+                        for k in SOURCES),
                     f"scaling {tag}: launches {base['launches']} != "
                     f"{SCALING_ITERS + 1} of each kernel")
             log(f"[scaling] (a) {tag}: {time.perf_counter() - t0:.2f} s, "
@@ -3153,7 +3262,7 @@ def scaling_gloo(device, profile):
         require(all(math.isfinite(x) for x in row["first_loss"])
                 and len(set(row["first_loss"])) == 1,
                 f"scaling (b) {shape}: first losses {row['first_loss']}")
-        require(all(v > 0 for r in row["launches"] for v in r.values()),
+        require(all(r[k] > 0 for r in row["launches"] for k in SOURCES),
                 f"scaling (b) {shape}: a kernel never launched")
         if shape[0] == 1:
             require(abs(row["first_loss"][0] - base) <= 1e-5 * base,
@@ -3273,8 +3382,8 @@ def scaling_four_card(device, profiles=None):
                 f"four-card sweep {tag}: {len(summary['meshes'])} meshes")
         for row in summary["meshes"]:
             for r, counts in enumerate(row["launches"]):
-                for k, v in counts.items():
-                    launches[r][k] += v
+                for k in SOURCES:
+                    launches[r][k] += counts[k]
         sweeps[tag] = summary
 
     t0 = time.perf_counter()
@@ -3304,7 +3413,7 @@ def scaling_four_card(device, profiles=None):
             f"(overflow {r['overflow']}), launches {r['launches']}; NCCL "
             f"all-reduce of the {r['allreduce_mb']:.2f} MB parameter "
             f"gradients {json.dumps(r['allreduce_ms'])} ms")
-        require(all(v == 1 for v in r["launches"].values()),
+        require(all(r["launches"][k] == 1 for k in SOURCES),
                 f"rank {r['rank']}: launches {r['launches']}")
         require(not r["overflow"], f"four-card check: rank {r['rank']}'s "
                 f"step overflows profile {profile!r}")
@@ -3439,7 +3548,7 @@ def four_card_cli(device, one_card_p50):
                 and rows0[-1][0] == resume_to,
                 f"the losses are not finite to {resume_to}: {rows0[-3:]}")
         launches = [r[3][0] for r in ranks]
-        require(all(v > 0 for ln in launches for v in ln.values()),
+        require(all(ln[k] > 0 for ln in launches for k in SOURCES),
                 f"a rank never launched a kernel {launches}")
         p50 = max(r[2][0]["p50_ms"] for r in ranks)
         log(f"[scaling] (f) efficiency of the joint iteration: "
@@ -3590,6 +3699,7 @@ def main() -> int:
     log(f"[check] 512x512 trained state max_abs_err={e512}")
     timings = time_kernels(s)
     del s
+    t_knn = time_knn(device)
     launches_legacy, launches_variants, e_var, legacy_ms = phase_variants(
         device, trainer, batch_for)
     e1080, t1080 = phase_1080p(device)
@@ -3674,8 +3784,24 @@ def main() -> int:
             f"in the four-card train CLI "
             f"{rows[-1]['launches_four_card_cli']}")
 
+    knn_row = {"name": "knn", "route": "cuda",
+               "source": "rodygs_tpu_torch/csrc/knn.cu", "replaces": None,
+               "launches_joint": launches_joint["knn"],
+               "launches_flagship": launches_flagship["knn"],
+               "flagship_ms_per_launch":
+                   t_flagship["knn"]["train_ms_per_launch"], **t_knn}
+    log(f"[time] knn: kernel {t_knn['ms']:.4f} ms, plain "
+        f"{t_knn['plain_ms']:.4f} ms, bound {t_knn['bound_ms']:.4f} ms at "
+        f"the cell's rigidity sample (k 4 over it: kernel "
+        f"{t_knn['ms_k4']:.4f} ms, plain {t_knn['plain_ms_k4']:.4f} ms, "
+        f"bound {t_knn['bound_ms_k4']:.4f} ms); launches in "
+        f"{JOINT_ITERATIONS[1] - JOINT_ITERATIONS[0] + 1} joint iterations "
+        f"{launches_joint['knn']}, in the flagship run's training "
+        f"{launches_flagship['knn']}, "
+        f"{knn_row['flagship_ms_per_launch']:.4f} ms a flagship launch")
+
     print(card_name_and_limit())
-    print(json.dumps({"kernels": rows}))
+    print(json.dumps({"kernels": rows, "knn": knn_row}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

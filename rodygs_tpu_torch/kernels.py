@@ -11,12 +11,15 @@ source rebuilds.
 Nothing here runs at import: the CPU tests import every module, so an
 import must need neither `nvcc` nor a card.
 
-`LAUNCHES[name]` counts launches of each kernel; the wrappers in
-render/compact.py and render/tile_kernel.py add one where they launch,
-and nowhere else. `reset_launches()` zeroes them. `csrc/launch_floor.cu` is
-no kernel of the renderer: it holds the empty kernel whose time is the floor
-under any few-microsecond kernel (`launch("launch_floor", blocks, threads)`),
-and is not counted.
+`KERNELS` names the renderer's four, which every render launches.
+`csrc/knn.cu` (ops/knn.py's `knn` on the card) is not among them: it runs
+only where a rigidity loss or a scale prior asks for neighbours.
+`LAUNCHES[name]` counts launches of the four and of `knn`; the wrappers in
+render/compact.py, render/tile_kernel.py and ops/knn.py add one where they
+launch, and nowhere else. `reset_launches()` zeroes them.
+`csrc/launch_floor.cu` is no kernel of the port: it holds the empty kernel
+whose time is the floor under any few-microsecond kernel
+(`launch("launch_floor", blocks, threads)`), and is not counted.
 """
 
 from __future__ import annotations
@@ -60,9 +63,11 @@ _SIGNATURES = {
                (_P, _I, _I, _P, _I, _P, _P, _P, _P)),
 }
 KERNELS = tuple(_SIGNATURES)
+# query, n, targets, m, valid (or null), k, out_d, out_i, stream
+_SIGNATURES["knn"] = ("rodygs_knn", (_P, _I, _P, _I, _P, _I, _P, _P, _P))
 # blocks, threads, stream: an empty kernel, launched as the others are
 _SIGNATURES["launch_floor"] = ("rodygs_launch_floor", (_I, _I, _P))
-LAUNCHES = {name: 0 for name in KERNELS}
+LAUNCHES = {name: 0 for name in (*KERNELS, "knn")}
 _libs: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}
 
@@ -152,7 +157,7 @@ def blocks_per_sm(name: str, variant: int) -> int:
     runtime counts them from its registers, its static and dynamic shared
     memory and its threads. `variant` picks the instantiation: the tile
     kernels' include_normal; expand's 2 * rows_mode + (13 rows emitted);
-    segsum's (13 rows summed)."""
+    segsum's (13 rows summed); knn's (k = 8)."""
     fn = getattr(_cdll(name), f"{_SIGNATURES[name][0]}_blocks_per_sm")
     fn.argtypes, fn.restype = (_I,), ctypes.c_int
     blocks = fn(int(variant))

@@ -184,7 +184,7 @@ def test_main_prints_the_line(monkeypatch, capsys):
     assert work["n_steady"] >= 1 and len(work["windows_ms"]) == 2
     assert list(points) == ["64x48_0k"]
     assert points["64x48_0k"].result == work
-    assert set(points["64x48_0k"].launches) == set(kernels.KERNELS)
+    assert set(points["64x48_0k"].launches) == set(kernels.LAUNCHES)
     assert set(jax_line(monkeypatch, capsys, work)) == set(line)
 
 

@@ -21,6 +21,7 @@ from rodygs_tpu_torch import kernel_check as KC
 from rodygs_tpu_torch import kernels
 from rodygs_tpu_torch.evalsuite import lpips as L
 from rodygs_tpu_torch.models import gaussians as G
+from rodygs_tpu_torch.ops import knn as KNN
 from rodygs_tpu_torch.render import compact as C
 from rodygs_tpu_torch.render import tile_kernel as TK
 from rodygs_tpu_torch.render.rasterize import render
@@ -133,10 +134,82 @@ def test_wrappers_validate_tensors(bad, match):
 
 
 def test_import_builds_nothing():
-    assert set(kernels.LAUNCHES) == set(kernels.KERNELS) == {
-        "expand", "tile_fwd", "tile_bwd", "segsum"}
+    """The renderer's four kernels, which every render launches, and the
+    KNN, counted beside them."""
+    assert set(kernels.KERNELS) == {"expand", "tile_fwd", "tile_bwd",
+                                    "segsum"}
+    assert set(kernels.LAUNCHES) == set(kernels.KERNELS) | {"knn"}
     assert all(name.endswith((".cu", ".cuh"))
                for name in [p.name for p in kernels._CSRC.iterdir()])
+
+
+def knn_points(n, m, seed, device="cpu"):
+    rng = np.random.default_rng(seed)
+    return (torch.tensor(rng.uniform(-1, 1, (n, 3)), dtype=torch.float32,
+                         device=device),
+            torch.tensor(rng.uniform(-1, 1, (m, 3)), dtype=torch.float32,
+                         device=device))
+
+
+class ReportsCard(torch.Tensor):
+    """A CPU tensor that says it lies on a card: `knn`'s choice of path,
+    and the wrapper's marshalling, without one."""
+
+    @property
+    def is_cuda(self):
+        return True
+
+
+@pytest.mark.parametrize("case,match", [
+    (dict(query=torch.zeros(5, 2)), r"query: expected \[N, 3\]"),
+    (dict(targets=torch.zeros(7, 4)), r"targets: expected \[M, 3\]"),
+    (dict(valid_mask=torch.ones(6, dtype=torch.bool)), r"valid_mask: expected"),
+    (dict(k=5), "the kernel takes k in"),
+    ({}, "CUDA tensor"),
+])
+def test_knn_wrapper_validates_arguments(case, match):
+    args = dict(query=torch.zeros(5, 3), targets=torch.zeros(7, 3), k=8,
+                valid_mask=torch.ones(7, dtype=torch.bool)) | case
+    with pytest.raises(ValueError, match=match):
+        KNN.knn_cuda(**args)
+
+
+@pytest.mark.parametrize("k", [4, 5, 8])
+def test_knn_takes_the_plain_path_on_the_cpu(k):
+    q, t = knn_points(40, 90, k)
+    valid = torch.arange(90) < 70
+    kernels.reset_launches()
+    d, i = KNN.knn(q, t, k, valid, block_size=16)
+    pd, pi = KNN.knn_plain(q, t, k, valid, block_size=16)
+    assert torch.equal(d, pd) and torch.equal(i, pi)
+    assert kernels.LAUNCHES["knn"] == 0
+
+
+@pytest.mark.parametrize("k", [3, 5])
+def test_knn_without_an_instantiation_raises_on_a_card(k, monkeypatch):
+    """A card's tensors always take the kernel: a k it has no
+    instantiation for raises, and nothing launches or falls back."""
+    q, t = (x.as_subclass(ReportsCard) for x in knn_points(30, 50, k))
+    monkeypatch.setattr(kernels, "launch", lambda *a: pytest.fail("launched"))
+    monkeypatch.setattr(KNN, "knn_plain", lambda *a: pytest.fail("plain"))
+    with pytest.raises(ValueError, match="the kernel takes k in"):
+        KNN.knn(q, t, k)
+
+
+@pytest.mark.parametrize("k,masked", [(4, False), (8, True)])
+def test_knn_with_an_instantiation_makes_one_launch(k, masked, monkeypatch):
+    """One launch of `knn` with the kernel's C arguments, and outputs of
+    the contract's shapes and types."""
+    q, t = (x.as_subclass(ReportsCard) for x in knn_points(30, 50, k))
+    valid = (torch.arange(50) < 40).as_subclass(ReportsCard) if masked else None
+    calls = []
+    monkeypatch.setattr(kernels, "launch", lambda *a: calls.append(a))
+    d, i = KNN.knn(q, t, k, valid)
+    (name, q_, n, t_, m, valid_, k_, d_, i_), = calls
+    assert (name, n, m, k_) == ("knn", 30, 50, k)
+    assert q_ is q and t_ is t and valid_ is valid and d_ is d and i_ is i
+    assert d.shape == i.shape == (30, k)
+    assert (d.dtype, i.dtype) == (torch.float32, torch.int32)
 
 
 BATCH_EDGE_COUNTS = [0, 32, 33, 64, 65, 1, 2100, 0, 31, 129]
@@ -643,3 +716,109 @@ def test_cuda_lpips_matches_cpu(cuda_device, net, tmp_path):
     card = float(L.lpips_fn(net, str(tmp_path / "w.npz"), cuda_device)(a, b))
     cpu = float(L.lpips_fn(net, str(tmp_path / "w.npz"), "cpu")(a, b))
     assert abs(card - cpu) <= 1e-4 * abs(cpu), (card, cpu)
+
+
+@pytest.fixture
+def fp32_products(monkeypatch):
+    """The plain KNN's product in full FP32, as the kernel computes it."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+
+
+def knn_both(q, t, k, valid=None):
+    """(kernel, plain) results on the card; the kernel launched once."""
+    kernels.reset_launches()
+    got = KNN.knn(q, t, k, valid)
+    assert kernels.LAUNCHES["knn"] == 1
+    return got, KNN.knn_plain(q, t, k, valid)
+
+
+@pytest.mark.parametrize("n,m,k,masked,same", [
+    (1000, 1537, 4, False, False),
+    (1000, 1537, 8, True, False),
+    (777, 777, 8, False, True),
+    (777, 777, 4, True, True),
+    (257, 5000, 8, True, True),
+])
+def test_cuda_knn_matches_plain(cuda_device, fp32_products, n, m, k, masked,
+                                same):
+    """Tie-free random points, N and M no multiple of the kernel's tiles:
+    indices equal, distances at rtol 1e-5 (atol 1e-6 for the self-match,
+    whose distance is the rounding of |q|^2 ~ 1 in either form). With the
+    queries among the targets each valid query's nearest is itself."""
+    q, t = knn_points(n, m, n + m + k, cuda_device)
+    if same:
+        q = t[:n].contiguous()
+    valid = None
+    if masked:
+        gen = torch.Generator(device=cuda_device).manual_seed(k)
+        valid = torch.rand(m, generator=gen, device=cuda_device) < 0.7
+    (d, i), (pd, pi) = knn_both(q, t, k, valid)
+    assert torch.equal(i, pi)
+    torch.testing.assert_close(d, pd, rtol=1e-5, atol=1e-6)
+    if same:
+        own = torch.arange(n, device=cuda_device, dtype=torch.int32)
+        mine = own if valid is None else own[valid[:n]]
+        rows = slice(None) if valid is None else valid[:n]
+        assert torch.equal(i[rows, 0], mine)
+
+
+@pytest.mark.parametrize("m,n_valid,k", [(600, 5, 8), (3, 3, 4), (0, 0, 8)])
+def test_cuda_knn_fewer_valid_targets_than_k(cuda_device, fp32_products, m,
+                                             n_valid, k):
+    """The slots no valid target fills read +inf and -1; the filled ones
+    are the plain version's."""
+    q, t = knn_points(300, m, m + k, cuda_device)
+    valid = torch.arange(m, device=cuda_device) >= m - n_valid
+    (d, i), (pd, pi) = knn_both(q, t, k, valid)
+    assert torch.equal(i, pi)
+    assert torch.isinf(d[:, n_valid:]).all() and (i[:, n_valid:] == -1).all()
+    assert (i[:, :n_valid] >= m - n_valid).all()
+    torch.testing.assert_close(d, pd, rtol=1e-5, atol=0.0)
+
+
+def test_cuda_knn_exact_ties(cuda_device, fp32_products):
+    """Every point three times over, shuffled: equal distances everywhere.
+    Each returned index's distance is the distance reported for it, the
+    sorted rows equal the plain version's, and of equal distances the lower
+    index comes first."""
+    rng = np.random.default_rng(7)
+    base = rng.uniform(-1, 1, (200, 3)).astype(np.float32)
+    pts = torch.tensor(np.repeat(base, 3, axis=0)[rng.permutation(600)],
+                       device=cuda_device)
+    (d, i), (pd, pi) = knn_both(pts, pts, 8)
+    exact = ((pts[:, None, :].double() - pts[i.long()].double()) ** 2).sum(-1)
+    torch.testing.assert_close(d.double(), exact, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(d, pd, rtol=1e-5, atol=1e-6)
+    tied = d[:, 1:] == d[:, :-1]
+    assert tied.any()
+    assert (i[:, 1:][tied] > i[:, :-1][tied]).all()
+
+
+def test_cuda_knn_at_the_cell_shape(cuda_device, fp32_products):
+    """The rigidity sample of the benchmark's cell: 131,072 x 131,072, K 8,
+    the last 11,072 slots dead (120,000 alive). At most 0.1% of the rows may
+    hold another neighbour set than the plain version's, and in each of
+    them the K-th distances agree to 1e-5 relative: a near-tie of the 8th
+    and 9th."""
+    n, alive = 131072, 120000
+    gen = torch.Generator(device=cuda_device).manual_seed(11)
+    pts = torch.randn((n, 3), generator=gen, device=cuda_device)
+    valid = torch.arange(n, device=cuda_device) < alive
+    (d, i), (pd, pi) = knn_both(pts, pts, 8, valid)
+    differ = (torch.sort(i, dim=1).values
+              != torch.sort(pi, dim=1).values).any(dim=1)
+    assert int(differ.sum()) <= n // 1000, int(differ.sum())
+    torch.testing.assert_close(d[differ, -1], pd[differ, -1], rtol=1e-5,
+                               atol=0.0)
+    same = ~differ
+    torch.testing.assert_close(d[same], pd[same], rtol=1e-5, atol=1e-6)
+
+
+def test_cuda_knn_without_an_instantiation_raises(cuda_device):
+    """On the card a k the kernel has no instantiation for raises before
+    any launch; no plain path stands in for it."""
+    q, t = knn_points(100, 300, 5, cuda_device)
+    kernels.reset_launches()
+    with pytest.raises(ValueError, match="the kernel takes k in"):
+        KNN.knn(q, t, 5)
+    assert kernels.LAUNCHES["knn"] == 0
