@@ -74,7 +74,13 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
                prior's K 4 over the same points, all valid: at most 0.1%
                of the rows with another neighbour set, each a near-tie of
                the K-th; both timed, beside the bound of the least FP32
-               operations (three FMAs and a compare a valid pair).
+               operations (three FMAs and a compare a valid pair). Then
+               the projection stage (`time_preprocess`) at the cell's two
+               shapes, SH 0 and 3: the kernels' outputs and per-Gaussian
+               gradients against the plain versions (radius, visibility
+               and the binning equal), forward and backward timed warm and
+               cold beside their byte bound, and both through the
+               Function against the plain version with autograd.
   5a. variants — on the trained state of phase 3 at 512x512: the legacy
                path (`render(binning_mode="legacy")`: broadcast-tier
                binning, records gather, the tile kernels) forward and
@@ -118,8 +124,10 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
                settled fragment profiles; requires finite losses, a falling
                dynamic loss, a moving motion model, clone + split > 0 in the
                static store, alive counts that fit the DensifyInfo, no
-               overflow at the end, every kernel launched and the KNN
-               once in each rigidity iteration. Then the four
+               overflow at the end, every kernel launched, the KNN
+               once in each rigidity iteration and the projection stage
+               twice each way and its camera reduction once in every
+               iteration. Then the four
                kernels against their plain versions on frame 0's
                concatenated static + deformed dynamic set, and
                torch.profiler over 5 joint iterations (one with rigidity)
@@ -293,7 +301,9 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
                `legacy_ms`, their times on the legacy records. Beside
                them, `knn`: the KNN's times at the cell's sample (phase
                5), its launches in phases 6 and 10 and its device time a
-               flagship rigidity iteration.
+               flagship rigidity iteration; `preprocess`: the projection
+               stage's readings by shape and its launches in phases 6 and
+               10.
 
 Without CUDA, or run from a directory without the package, it exits with
 a non-zero code before printing any result. Imports neither JAX nor the
@@ -302,6 +312,7 @@ JAX package.
 
 from __future__ import annotations
 
+import itertools
 import json
 import math
 import re
@@ -780,6 +791,95 @@ def time_knn(device):
                     f"rows_differ{suffix}": rows}
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
+    return res
+
+
+PREPROCESS_SHAPES = ((262144, 120000, True), (524288, 240000, False))
+
+
+def preprocess_bytes(n, n_alive, deg, cam_grad, sh_coeffs=16):
+    """Bytes the projection stage needs to move, forward and backward: each
+    alive Gaussian's parameters (means, scales, quats, opacity, the active
+    SH coefficients) and each slot's alive byte in; forward the 13 rows
+    out (15 floats, radius, visible); backward the cotangents of mean2d,
+    conic, depth, rgb and normal (12 floats) in and the gradients out
+    (means, scales, quats and the whole [K, 3] SH block), and the camera's
+    27 partial sums a block of 256 when the pose takes a gradient."""
+    params = n_alive * (12 + 12 + 16 + 12 * (deg + 1) ** 2) + n
+    fwd = params + n_alive * 4 + n * (15 * 4 + 4 + 1)
+    bwd = (params + n * 12 * 4 + n * (12 + 12 + 16 + 12 * sh_coeffs)
+           + (n // 256 * 27 * 4 * 2 if cam_grad else 0))
+    return fwd, bwd
+
+
+def time_preprocess(device):
+    """The projection stage at the cell's two shapes (PREPROCESS_SHAPES:
+    the static step's 262,144-slot store with the pose gradient, the
+    dynamic step's 524,288-slot concatenation without), SH degree 0 (the
+    cell) and 3: `check_preprocess` first, then the forward kernel, the
+    backward kernel (with the camera reduction where the pose takes a
+    gradient) and both through the Function as render() calls it, against
+    the plain version's forward plus autograd's backward, each on CUDA
+    events; warm (`graph_ms`, the kernels alone) and cold. Bound: the
+    bytes at 3.35 TB/s. Returns {(n, deg): dict}."""
+    import torch
+    from rodygs_tpu_torch import kernel_check as KC
+    from rodygs_tpu_torch.render import preprocess as PP
+
+    res = {}
+    for (n, n_alive, cam_grad), deg in itertools.product(PREPROCESS_SHAPES,
+                                                          (0, 3)):
+        chk = KC.check_preprocess(n, n_alive, deg, device, seed=deg,
+                                  cam_grad=cam_grad)
+        ins, alive, cam = KC.preprocess_scene(n, n_alive, deg, device)
+        w2c, full_proj, campos = (x.detach() for x in PP._camera(cam))
+        fwd_args = (ins["means3d"], ins["scales"], ins["quats"], ins["shs"],
+                    None, w2c, full_proj, campos, ins["opacities"], alive,
+                    cam.fovx, cam.fovy, deg, 512, 512, 1.0)
+        out = PP.preprocess_cuda_fwd(*fwd_args)
+        gen = torch.Generator(device=device).manual_seed(1)
+        cots = tuple(torch.randn(t.shape, generator=gen, device=device)
+                     for t in out[:5])
+        needs = (True, True, True, True, False) + (cam_grad,) * 3
+        bwd_args = (ins["means3d"], ins["scales"], ins["quats"], ins["shs"],
+                    w2c, full_proj, campos, alive, cam.fovx, cam.fovy, deg,
+                    512, 512, 1.0, False, cots, needs)
+        fwd = lambda: PP.preprocess_cuda_fwd(*fwd_args)
+        bwd = lambda: PP.preprocess_cuda_bwd(*bwd_args)
+
+        def through(fn):
+            def run():
+                leaves = {k: ins[k].detach().requires_grad_(True)
+                          for k in ("means3d", "scales", "quats", "shs")}
+                c = cam
+                if cam_grad:
+                    c = cam._replace(
+                        q_c2w=cam.q_c2w.detach().requires_grad_(True),
+                        t_c2w=cam.t_c2w.detach().requires_grad_(True))
+                s = fn(leaves["means3d"], leaves["scales"], leaves["quats"],
+                       ins["opacities"], leaves["shs"], deg, c, 512, 512,
+                       alive=alive)
+                torch.autograd.backward(
+                    [s.mean2d, s.conic, s.depth, s.rgb, s.normal],
+                    list(cots))
+            return run
+
+        b_fwd, b_bwd = preprocess_bytes(n, n_alive, deg, cam_grad)
+        r = dict(check=chk, fwd_ms=graph_ms(fwd), bwd_ms=graph_ms(bwd),
+                 fwd_cold_ms=cold_ms(fwd), bwd_cold_ms=cold_ms(bwd),
+                 function_ms=time_ms(through(PP.preprocess), reps=10),
+                 plain_ms=time_ms(through(PP.preprocess_plain), reps=10),
+                 fwd_bound_ms=b_fwd / PEAK_BYTES_PER_S * 1e3,
+                 bwd_bound_ms=b_bwd / PEAK_BYTES_PER_S * 1e3)
+        log(f"[preprocess] n {n} ({n_alive} alive), SH {deg}, pose "
+            f"gradient {cam_grad}: {chk}; forward {r['fwd_ms']:.4f} ms warm "
+            f"/ {r['fwd_cold_ms']:.4f} cold (bound {r['fwd_bound_ms']:.4f}), "
+            f"backward {r['bwd_ms']:.4f} / {r['bwd_cold_ms']:.4f} (bound "
+            f"{r['bwd_bound_ms']:.4f}); forward + backward through the "
+            f"Function {r['function_ms']:.4f} ms, plain + autograd "
+            f"{r['plain_ms']:.4f} ms (stream time, host launches included)")
+        res[(n, deg)] = r
+        del ins, out, cots
     return res
 
 
@@ -1908,6 +2008,11 @@ def phase_joint(device, **scene):
     require(launches["knn"] == knn_expected,
             f"the KNN launched {launches['knn']} times in "
             f"{knn_expected} rigidity iterations")
+    its = last - first + 1
+    require(launches["preprocess_fwd"] == launches["preprocess_bwd"]
+            == 2 * its and launches["preprocess_reduce"] == its,
+            f"the preprocess kernels launched {launches} times in {its} "
+            f"joint iterations (2, 2 and 1 an iteration expected)")
 
     # the four kernels against their plain versions on the concatenated
     # static + deformed dynamic set of frame 0 (the dynamic step's input)
@@ -2249,7 +2354,8 @@ def render_sort_bands(device, n=240_000, width=1920, height=1080):
     launches = dict(kernels.LAUNCHES)
     log(f"[eval bands] launches in the three renders: {launches}")
     require(launches == dict(expand=1 + 2 + 4, tile_fwd=3, tile_bwd=3,
-                             segsum=1 + 2 + 4, knn=0),
+                             segsum=1 + 2 + 4, knn=0, preprocess_fwd=3,
+                             preprocess_bwd=3, preprocess_reduce=3),
             "expand and segsum do not launch once a band")
     ref = outs[1]
     for bands in (2, 4):
@@ -3021,7 +3127,10 @@ def phase_flagship(device):
     expected = {"expand": bands, "segsum": bands,
                 "tile_fwd": 2 * len(profiles), "tile_bwd": 2 * len(profiles),
                 "knn": rigidity_launches(joint.dynamic, range(
-                    first_it, first_it + len(profiles)))}
+                    first_it, first_it + len(profiles))),
+                "preprocess_fwd": 2 * len(profiles),
+                "preprocess_bwd": 2 * len(profiles),
+                "preprocess_reduce": len(profiles)}
     log(f"[flagship] train: {len(profiles)} iterations in {train_s:.2f} s, "
         f"step_ms_median {res['step_ms_median']} "
         f"(windows {res['window_ms']} ms), "
@@ -3700,6 +3809,7 @@ def main() -> int:
     timings = time_kernels(s)
     del s
     t_knn = time_knn(device)
+    t_pre = time_preprocess(device)
     launches_legacy, launches_variants, e_var, legacy_ms = phase_variants(
         device, trainer, batch_for)
     e1080, t1080 = phase_1080p(device)
@@ -3800,8 +3910,25 @@ def main() -> int:
         f"{launches_flagship['knn']}, "
         f"{knn_row['flagship_ms_per_launch']:.4f} ms a flagship launch")
 
+    pre_row = {"name": "preprocess", "route": "cuda",
+               "source": "rodygs_tpu_torch/csrc/preprocess.cu",
+               "replaces": None,
+               "launches_joint": {k: launches_joint[k] for k in
+                                  ("preprocess_fwd", "preprocess_bwd",
+                                   "preprocess_reduce")},
+               "launches_flagship": {k: launches_flagship[k] for k in
+                                     ("preprocess_fwd", "preprocess_bwd",
+                                      "preprocess_reduce")},
+               "shapes": {f"{n}/sh{deg}": r for (n, deg), r in
+                          t_pre.items()}}
+    log(f"[time] preprocess: {pre_row['shapes']}; launches in "
+        f"{JOINT_ITERATIONS[1] - JOINT_ITERATIONS[0] + 1} joint iterations "
+        f"{pre_row['launches_joint']}, in the flagship run's training "
+        f"{pre_row['launches_flagship']}")
+
     print(card_name_and_limit())
-    print(json.dumps({"kernels": rows, "knn": knn_row}))
+    print(json.dumps({"kernels": rows, "knn": knn_row,
+                      "preprocess": pre_row}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

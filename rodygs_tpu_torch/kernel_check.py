@@ -19,7 +19,8 @@ versions on what one such rank runs. `needed_pairs` counts the
 (pixel, fragment) pairs the compositor must evaluate on that data, for the
 kernels' operation bound; `walk_stats` counts the same walk at warp
 granularity. `random_scene` builds the seeded test scene these checks run
-on.
+on. `check_preprocess` holds the projection stage's forward and backward
+(csrc/preprocess.cu) against the plain version on `preprocess_scene`.
 
 Used by `chip_smoke.py` and the on-card tests (tests/test_torch_cuda.py).
 On CPU tensors the "kernel" side is itself the plain version, which keeps
@@ -39,6 +40,7 @@ from .render import tile_kernel as TK
 from .ops.sh import rgb2sh
 from .render.binning import tile_grid
 from .render.camera import make_camera
+from .render import preprocess as PP
 from .render.preprocess import preprocess
 
 # Tolerances. expand copies records and computes integer keys: exact. Tile
@@ -56,6 +58,12 @@ TOL_SEGSUM_SCALED = 1e-5
 # the table gradients of n tile blocks summed, against the whole grid's:
 # each block's sums run over its own fragments only (1e-5 of the maximum)
 TOL_SPLIT_SCALED = 1e-5
+# preprocess: the forward takes the plain version's rounded operations in
+# their order (2e-6 of each output's max allows a last-bit difference of a
+# transcendental); the backward's chain rule, contracted to FMAs, against
+# the same rule in torch ops (1e-5 of each gradient's max)
+TOL_PREPROCESS_FWD = 2e-6
+TOL_PREPROCESS_GRAD = 1e-5
 
 
 class KernelMismatch(AssertionError):
@@ -627,3 +635,97 @@ def walk_stats(s: dict) -> dict:
 
     return {"tile_counts": dist(cb.tile_counts), "tile_walked": dist(walked),
             "warp_pairs": pairs}
+
+
+def preprocess_scene(n: int, n_alive: int, seed: int, device, sh_coeffs=16):
+    """(inputs dict, alive, camera) for the projection stage: n slots, the
+    first n_alive alive and the rest all-zero as a store's dead slots;
+    points in front of, beside and behind a rotated camera (fov 0.9), log
+    scales in [-5, -1], SH coefficients N(0, 0.3) (colours below 0 too)."""
+    rng = np.random.default_rng(seed)
+    f32 = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    ins = dict(
+        means3d=rng.uniform([-4.0, -4.0, -0.5], [4.0, 4.0, 7.0], (n, 3)),
+        scales=np.exp(rng.uniform(-5.0, -1.0, (n, 3))),
+        quats=rng.normal(size=(n, 4)),
+        shs=rng.normal(0.0, 0.3, (n, sh_coeffs, 3)),
+        opacities=rng.uniform(0.005, 1.0, n))
+    for k in ("means3d", "scales", "quats", "shs"):
+        ins[k][n_alive:] = 0.0
+    ins = {k: f32(v) for k, v in ins.items()}
+    alive = torch.arange(n, device=device) < n_alive
+    cam = make_camera([0.99, 0.05, -0.1, 0.02], [0.1, -0.2, 0.3], 0.9, 0.9,
+                      device=device)
+    return ins, alive, cam
+
+
+def check_preprocess(n: int, n_alive: int, sh_degree: int, device,
+                     seed: int = 0, width: int = 512, height: int = 512,
+                     cam_grad: bool = True) -> dict:
+    """The projection stage's forward and backward (on a CUDA device the
+    kernels, on the CPU the plain version again) against the plain version
+    on `preprocess_scene`. Raises KernelMismatch unless radius, visibility
+    and the compact binning built from the outputs are equal, the float
+    outputs lie within TOL_PREPROCESS_FWD of each output's max, every
+    gradient within TOL_PREPROCESS_GRAD of its max, and two backward calls
+    give the same bits. Returns the readings: fwd_err, fwd_bits (the
+    float outputs equal bit for bit), grad_err, grad_bits (the gradients
+    of means, scales, quats and shs equal bit for bit), visible (count)."""
+    ins, alive, cam = preprocess_scene(n, n_alive, seed, device)
+    w2c, full_proj, campos = (x.detach() for x in PP._camera(cam))
+    args = (ins["means3d"], ins["scales"], ins["quats"], ins["shs"], None,
+            w2c, full_proj, campos, ins["opacities"], alive, cam.fovx,
+            cam.fovy, sh_degree, width, height, 1.0)
+    got = PP._forward(*args)
+    with torch.no_grad():
+        want = PP._project_plain(
+            ins["means3d"], ins["scales"], ins["quats"], ins["opacities"],
+            ins["shs"], sh_degree, w2c, full_proj, campos, cam.fovx,
+            cam.fovy, width, height, 1.0, alive, None)
+    names = ("mean2d", "conic", "depth", "rgb", "normal", "radius",
+             "visible", "ext")
+    for name in ("radius", "visible"):
+        k = names.index(name)
+        _require(torch.equal(got[k], want[k]), f"preprocess {name} differs")
+    fwd_err, fwd_bits = 0.0, True
+    for name, a, b in zip(names, got, want):
+        if name in ("radius", "visible"):
+            continue
+        fwd_bits &= torch.equal(a, b)
+        fwd_err = max(fwd_err, float((a - b).abs().max()
+                                     / b.abs().max().clamp(min=1e-30)))
+    _require(fwd_err <= TOL_PREPROCESS_FWD,
+             f"preprocess forward: {fwd_err:.3g} of the max")
+    tx, ty = tile_grid(width, height)
+    cap = C.fragment_capacity(n, "lean")
+    bins = [C.build_binning(PP._splats(f, ins["opacities"], False), tx, ty,
+                            cap, tight=True) for f in (got, want)]
+    for field, a, b in zip(bins[0]._fields, *bins):
+        _require(torch.equal(a, b), f"preprocess binning: {field} differs")
+
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    cots = tuple(torch.randn(t.shape, generator=gen, device=device)
+                 for t in got[:5])
+    needs = (True, True, True, True, False) + (cam_grad,) * 3
+    saved = (ins["means3d"], ins["scales"], ins["quats"], ins["shs"], w2c,
+             full_proj, campos, alive, cam.fovx, cam.fovy, sh_degree, width,
+             height, 1.0, False, cots, needs)
+    back = (PP.preprocess_cuda_bwd if ins["means3d"].is_cuda
+            else PP.preprocess_backward_plain)
+    grads = back(*saved)
+    again = back(*saved)
+    ref = PP.preprocess_backward_plain(*saved)
+    grad_err, grad_bits = 0.0, True
+    for k, (a, b, c) in enumerate(zip(grads, ref, again)):
+        if b is None:
+            continue
+        _require(torch.equal(a, c), f"preprocess backward: gradient {k} "
+                 "differs between two calls")
+        if k < 4:    # the per-Gaussian gradients; the camera's are sums
+            grad_bits &= torch.equal(a, b)
+        grad_err = max(grad_err, float((a - b).abs().max()
+                                       / b.abs().max().clamp(min=1e-30)))
+    _require(grad_err <= TOL_PREPROCESS_GRAD,
+             f"preprocess backward: {grad_err:.3g} of the max")
+    return dict(fwd_err=fwd_err, fwd_bits=bool(fwd_bits), grad_err=grad_err,
+                grad_bits=bool(grad_bits), visible=int(got[6].sum()))

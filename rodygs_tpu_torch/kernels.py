@@ -13,10 +13,13 @@ import must need neither `nvcc` nor a card.
 
 `KERNELS` names the renderer's four, which every render launches.
 `csrc/knn.cu` (ops/knn.py's `knn` on the card) is not among them: it runs
-only where a rigidity loss or a scale prior asks for neighbours.
-`LAUNCHES[name]` counts launches of the four and of `knn`; the wrappers in
-render/compact.py, render/tile_kernel.py and ops/knn.py add one where they
-launch, and nowhere else. `reset_launches()` zeroes them.
+only where a rigidity loss or a scale prior asks for neighbours. Nor is
+`csrc/preprocess.cu` (render/preprocess.py's projection stage), one library
+with three entry points: `preprocess_fwd`, `preprocess_bwd` and
+`preprocess_reduce` (the camera gradient's fixed-order sum).
+`LAUNCHES[name]` counts launches of the four, of `knn` and of the three
+preprocess entries; `launch` adds one for each, and nothing else does.
+`reset_launches()` zeroes them.
 `csrc/launch_floor.cu` is no kernel of the port: it holds the empty kernel
 whose time is the floor under any few-microsecond kernel
 (`launch("launch_floor", blocks, threads)`), and is not counted.
@@ -43,6 +46,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C entry point and its argument types, per kernel source. Every entry
 # returns cudaGetLastError() after its launch.
 _SIGNATURES = {
@@ -65,9 +69,29 @@ _SIGNATURES = {
 KERNELS = tuple(_SIGNATURES)
 # query, n, targets, m, valid (or null), k, out_d, out_i, stream
 _SIGNATURES["knn"] = ("rodygs_knn", (_P, _I, _P, _I, _P, _I, _P, _P, _P))
+# means, scales, quats, shs, n, K, deg, alive, colors, opac, w2c,
+# full_proj, campos, fovx, fovy, W, H, scale_modifier, mean2d, conic, depth,
+# rgb, normal, radius, visible, ext, stream
+_SIGNATURES["preprocess_fwd"] = (
+    "rodygs_preprocess_fwd", (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                              _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P,
+                              _P, _P, _P))
+# means, scales, quats, shs, n, K, deg, alive, w2c, full_proj, campos, fovx,
+# fovy, W, H, scale_modifier, g_mean2d, ld, g_conic, ld, g_depth, g_rgb, ld,
+# g_normal, ld, d_means, d_scales, d_quats, d_shs, partial, stream
+_SIGNATURES["preprocess_bwd"] = (
+    "rodygs_preprocess_bwd", (_P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                              _P, _I, _I, _F, _P, _I, _P, _I, _P, _P, _I, _P,
+                              _I, _P, _P, _P, _P, _P, _P))
+# partial, rows, d_w2c, d_full_proj, d_campos, stream
+_SIGNATURES["preprocess_reduce"] = ("rodygs_preprocess_reduce",
+                                    (_P, _I, _P, _P, _P, _P))
+# the source that holds an entry point, where its name is not the entry's
+_SOURCE = {name: "preprocess" for name in
+           ("preprocess_fwd", "preprocess_bwd", "preprocess_reduce")}
 # blocks, threads, stream: an empty kernel, launched as the others are
 _SIGNATURES["launch_floor"] = ("rodygs_launch_floor", (_I, _I, _P))
-LAUNCHES = {name: 0 for name in (*KERNELS, "knn")}
+LAUNCHES = {name: 0 for name in (*KERNELS, "knn", *_SOURCE)}
 _libs: dict[str, ctypes.CDLL] = {}
 BUILD_LOG: dict[str, str] = {}
 
@@ -95,6 +119,10 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
+def _source(name: str) -> str:
+    return _SOURCE.get(name, name)
+
+
 def build_all() -> float:
     """Compile every missing kernel library, one nvcc per source, all in
     parallel. Returns the wall seconds spent; raises on any failure. The
@@ -103,7 +131,7 @@ def build_all() -> float:
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
-    for name in _SIGNATURES:
+    for name in sorted({_source(entry) for entry in _SIGNATURES}):
         out = _lib_path(name)
         if out.exists():
             continue
@@ -126,16 +154,20 @@ def build_all() -> float:
 
 
 def _cdll(name: str) -> ctypes.CDLL:
-    lib = _libs.get(name)
+    """The library that holds entry point `name`, loaded with the argument
+    types of every entry it holds."""
+    src = _source(name)
+    lib = _libs.get(src)
     if lib is None:
-        path = _lib_path(name)
+        path = _lib_path(src)
         if not path.exists():
             build_all()
-        lib = _libs[name] = ctypes.CDLL(str(path))
-        sym, argtypes = _SIGNATURES[name]
-        fn = getattr(lib, sym)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
+        lib = _libs[src] = ctypes.CDLL(str(path))
+        for entry, (sym, argtypes) in _SIGNATURES.items():
+            if _source(entry) == src:
+                fn = getattr(lib, sym)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
     return lib
 
 

@@ -23,6 +23,7 @@ from rodygs_tpu_torch.evalsuite import lpips as L
 from rodygs_tpu_torch.models import gaussians as G
 from rodygs_tpu_torch.ops import knn as KNN
 from rodygs_tpu_torch.render import compact as C
+from rodygs_tpu_torch.render import preprocess as PP
 from rodygs_tpu_torch.render import tile_kernel as TK
 from rodygs_tpu_torch.render.rasterize import render
 
@@ -135,10 +136,11 @@ def test_wrappers_validate_tensors(bad, match):
 
 def test_import_builds_nothing():
     """The renderer's four kernels, which every render launches, and the
-    KNN, counted beside them."""
+    KNN and the three preprocess entry points, counted beside them."""
     assert set(kernels.KERNELS) == {"expand", "tile_fwd", "tile_bwd",
                                     "segsum"}
-    assert set(kernels.LAUNCHES) == set(kernels.KERNELS) | {"knn"}
+    assert set(kernels.LAUNCHES) == set(kernels.KERNELS) | {
+        "knn", "preprocess_fwd", "preprocess_bwd", "preprocess_reduce"}
     assert all(name.endswith((".cu", ".cuh"))
                for name in [p.name for p in kernels._CSRC.iterdir()])
 
@@ -210,6 +212,57 @@ def test_knn_with_an_instantiation_makes_one_launch(k, masked, monkeypatch):
     assert q_ is q and t_ is t and valid_ is valid and d_ is d and i_ is i
     assert d.shape == i.shape == (30, k)
     assert (d.dtype, i.dtype) == (torch.float32, torch.int32)
+
+
+def test_check_preprocess_runs_on_plain_versions():
+    assert KC.check_preprocess(2000, 900, 3, "cpu", width=128,
+                               height=96) == pytest.approx(dict(
+        fwd_err=0.0, fwd_bits=True, grad_err=0.0, grad_bits=True,
+        visible=KC.check_preprocess(2000, 900, 0, "cpu", width=128,
+                                    height=96)["visible"]))
+
+
+def _card_preprocess(deg, pose_grad, monkeypatch, calls):
+    """preprocess on tensors that say they lie on a card, `launch`
+    recorded and the plain versions ruled out."""
+    ins, alive, cam = KC.preprocess_scene(300, 250, 4, "cpu")
+    card = lambda x: x.as_subclass(ReportsCard)
+    x = {k: card(v) for k, v in ins.items()}
+    x["means3d"].requires_grad_(True)
+    cam = cam._replace(q_c2w=card(cam.q_c2w).requires_grad_(pose_grad),
+                       t_c2w=card(cam.t_c2w), fovx=card(cam.fovx),
+                       fovy=card(cam.fovy))
+    monkeypatch.setattr(kernels, "launch", lambda *a: calls.append(a))
+    for name in ("_project_plain", "preprocess_backward_plain"):
+        monkeypatch.setattr(PP, name, lambda *a: pytest.fail("plain"))
+    return PP.preprocess(x["means3d"], x["scales"], x["quats"],
+                         x["opacities"], x["shs"], deg, cam, 64, 48,
+                         alive=card(alive))
+
+
+@pytest.mark.parametrize("pose_grad", [False, True])
+def test_preprocess_on_a_card_launches_the_kernels(pose_grad, monkeypatch):
+    """On a card's tensors the forward is one launch and the backward one,
+    plus the camera reduction when the pose takes a gradient; the plain
+    versions are never reached."""
+    calls = []
+    out = _card_preprocess(2, pose_grad, monkeypatch, calls)
+    assert [c[0] for c in calls] == ["preprocess_fwd"]
+    (_, means, *_rest), = calls
+    assert means.shape == (300, 3) and _rest[3:6] == [300, 16, 2]
+    (out.mean2d.sum() + out.depth.sum()).backward()
+    names = [c[0] for c in calls]
+    assert names == ["preprocess_fwd", "preprocess_bwd"] + (
+        ["preprocess_reduce"] if pose_grad else [])
+    bwd = calls[1]
+    assert bwd[5:8] == (300, 16, 2)
+    assert (bwd[-1] is not None) == pose_grad      # the camera partials
+
+
+def test_preprocess_on_a_card_raises_for_an_sh_degree_without_kernel(
+        monkeypatch):
+    with pytest.raises(ValueError, match="the kernel takes SH degrees"):
+        _card_preprocess(4, False, monkeypatch, [])
 
 
 BATCH_EDGE_COUNTS = [0, 32, 33, 64, 65, 1, 2100, 0, 31, 129]
@@ -822,3 +875,58 @@ def test_cuda_knn_without_an_instantiation_raises(cuda_device):
     with pytest.raises(ValueError, match="the kernel takes k in"):
         KNN.knn(q, t, 5)
     assert kernels.LAUNCHES["knn"] == 0
+
+
+@pytest.mark.parametrize("n,n_alive,cam_grad", [(262144, 120000, True),
+                                                (524288, 240000, False)])
+@pytest.mark.parametrize("deg", [0, 3])
+def test_cuda_preprocess_matches_plain(cuda_device, n, n_alive, cam_grad,
+                                       deg):
+    """The cell's two shapes (the static step's store with the pose
+    gradient, the dynamic step's concatenation without): radius,
+    visibility and the compact binning equal to the plain version's on the
+    card, the float outputs within 2e-6 of each output's max, the
+    gradients within 1e-5 of each gradient's max of the hand backward in
+    torch ops, and two backward calls bit for bit equal."""
+    kernels.reset_launches()
+    got = KC.check_preprocess(n, n_alive, deg, cuda_device, seed=deg,
+                              cam_grad=cam_grad)
+    assert got["visible"] > n_alive // 2
+    assert kernels.LAUNCHES["preprocess_fwd"] == 1
+    assert kernels.LAUNCHES["preprocess_bwd"] == 2
+    assert kernels.LAUNCHES["preprocess_reduce"] == (2 if cam_grad else 0)
+
+
+def test_cuda_preprocess_camera_gradient_is_deterministic(cuda_device):
+    """Through render(): two backward passes give the pose the same bits."""
+    params, cam = scene(n=20000, device=cuda_device)
+    grads = []
+    for _ in range(2):
+        q = cam.q_c2w.clone().requires_grad_(True)
+        t = cam.t_c2w.clone().requires_grad_(True)
+        o = render(params.xyz, G.get_features(params), G.get_opacity(params),
+                   G.get_scaling(params), params.rotation,
+                   cam._replace(q_c2w=q, t_c2w=t), 3, 128, 128)
+        o["rendered_image"].square().mean().backward()
+        grads.append((q.grad, t.grad))
+    assert torch.equal(grads[0][0], grads[1][0])
+    assert torch.equal(grads[0][1], grads[1][1])
+    assert grads[0][0].abs().max() > 0
+
+
+def test_cuda_joint_iteration_launches_preprocess_twice_each_way(cuda_device):
+    """One joint iteration renders twice (the static step with the pose
+    gradient, the dynamic step without): 2 forward, 2 backward launches
+    and 1 camera reduction."""
+    import chip_smoke as CS
+
+    joint, batch_for, _, _ = CS.joint_trainer(
+        cuda_device, size=64, n_static=2000, cap_static=4096, n_dyn=400,
+        cap_dyn=1024)
+    for it in (481, 482):    # neither densifies
+        kernels.reset_launches()
+        joint.train_iteration(batch_for(it - 1), batch_for(it - 1), it)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["preprocess_fwd"] == 2, kernels.LAUNCHES
+        assert kernels.LAUNCHES["preprocess_bwd"] == 2, kernels.LAUNCHES
+        assert kernels.LAUNCHES["preprocess_reduce"] == 1, kernels.LAUNCHES
