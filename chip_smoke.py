@@ -96,10 +96,8 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
                13 the constant 1) against their plain versions; the legacy
                reduction (`index_add_`) within segsum's bar of segsum on
                the same fragment gradients; the legacy render and its
-               gradients at 128x128 against the CPU. Then the bf16 payload
-               (1e-2 image, 3e-2 gradients against float32) and the gather
-               unsort and gather records (bit-identical to sort) on the
-               trainer's render, all four kernels launched; both renders
+               gradients at 128x128 against the CPU. Then the trainer's
+               compact render, all four kernels launched; both renders
                against the dense oracle (render/composite_ref.py) at
                256x256 with 2,000 gaussians (2e-5 image / alpha, 2e-4 depth
                / normal; the compact render off the tiles whose order a
@@ -297,7 +295,7 @@ Phases (any failure exits non-zero; no phase is caught and skipped):
                and last
                {"ok": true, "device": ...}. The tile kernels' rows carry
                `launches_legacy` (one legacy render of phase 5a),
-               `launches_variants` (its four variant renders) and
+               `launches_variants` (its compact render) and
                `legacy_ms`, their times on the legacy records. Beside
                them, `knn`: the KNN's times at the cell's sample (phase
                5), its launches in phases 6 and 10 and its device time a
@@ -1259,13 +1257,11 @@ def phase_variants(device, trainer, batch_for):
     (phase 3b): the legacy path end to end (launches counted), its
     binning's order against the compact one's, the tile kernels on the
     legacy records against their plain versions, the legacy reduction
-    against segsum, the legacy render on the card against the CPU, the bf16
-    payload and the gather strategies, the dense oracle, 50 steps of the
-    row-sparse camera Adam, and the render times. Returns
-    (launches_legacy, launches_variants, {kernel: max_abs_err},
-    {kernel: legacy-layout ms})."""
-    import contextlib
-
+    against segsum, the legacy render on the card against the CPU, the
+    trainer's compact render, the dense oracle, 50 steps of the row-sparse
+    camera Adam, and the render times. Returns (launches_legacy,
+    launches_variants, {kernel: max_abs_err}, {kernel: legacy-layout
+    ms})."""
     import torch
     from rodygs_tpu_torch import kernel_check as KC
     from rodygs_tpu_torch import kernels
@@ -1404,46 +1400,19 @@ def phase_variants(device, trainer, batch_for):
                 for k in OUT_KEYS), "legacy render cuda vs cpu")
     require(max(e_grad) <= KC.TOL_BWD_SCALED, "legacy gradients cuda vs cpu")
 
-    # the compact variants on the trainer's own render
+    # the trainer's own compact render
     prof = trainer.fragment_profile
     kw = dict(fragment_profile=prof, include_normal=False)
-
-    @contextlib.contextmanager
-    def knob(name, value):
-        old = getattr(R, name)
-        setattr(R, name, value)
-        try:
-            yield
-        finally:
-            setattr(R, name, old)
-
     torch.cuda.synchronize()
     kernels.reset_launches()
-    base = rg(**kw)
-    bf16 = rg(bf16_records=True, **kw)
-    with knob("_BWD_UNSORT", "gather"):
-        g_unsort = rg(**kw)
-    with knob("_FWD_RECORDS", "gather"):
-        g_records = rg(**kw)
+    rg(**kw)
     torch.cuda.synchronize()
     launches_variants = dict(kernels.LAUNCHES)
-    log(f"[variants] bf16 / gather-unsort / gather-records renders "
-        f"(profile {prof!r}): launches {launches_variants}")
+    log(f"[variants] the trainer's compact render (profile {prof!r}): "
+        f"launches {launches_variants}")
     require(all(launches_variants[k] > 0 for k in kernels.KERNELS),
-            f"a kernel never launched in the variants: {launches_variants}")
-    e_bf = float((bf16[0]["rendered_image"]
-                  - base[0]["rendered_image"]).abs().max())
-    g_bf = max(_scaled(a, b) for a, b in zip(bf16[1], base[1]))
-    log(f"[variants] bf16 payload vs float32: image {e_bf:.3g} (bar 1e-2), "
-        f"gradients scaled {g_bf:.3g} (bar 3e-2)")
-    require(e_bf < 1e-2 and g_bf < 3e-2, "bf16 payload off its envelope")
-    for name, (o, g) in (("gather unsort", g_unsort),
-                         ("gather records", g_records)):
-        require(all(torch.equal(o[k], base[0][k]) for k in OUT_KEYS)
-                and all(torch.equal(a, b) for a, b in zip(g, base[1])),
-                f"{name} differs from sort")
-    log("[variants] gather unsort and gather records: outputs and gradients "
-        "bit-identical to sort")
+            f"a kernel never launched in the compact render: "
+            f"{launches_variants}")
 
     # the dense oracle on a scene small enough for it
     po, camo = KC.random_scene(ORACLE_N, 11, device)
@@ -3879,7 +3848,7 @@ def main() -> int:
             f"{iterations} steps "
             f"{launches[name]}, in the bench windows "
             f"{rows[-1]['launches_bench']}, in one legacy render "
-            f"{launches_legacy[name]}, in the variants' four renders "
+            f"{launches_legacy[name]}, in the variants' compact render "
             f"{launches_variants[name]}, in "
             f"{JOINT_ITERATIONS[1] - JOINT_ITERATIONS[0] + 1} "
             f"joint iterations {launches_joint[name]}, inside eval() "

@@ -26,13 +26,6 @@ over `cap_band` slots: expand, the sort, the unsort and segsum then run
 once per band, and the sorted blocks concatenate into the one records
 array the tile kernels walk. Per-tile fragment sets and their depth order
 are those of one band.
-
-`composite_compact`'s variants, all of the JAX package's: the bf16 payload
-(`pack_bf16_payload`: opacity, rgb and normal rows rounded to bf16 and
-packed two to an int32 row through the sort and the unsort; lossy, opt-in),
-`bwd_unsort="gather"` (the unsort as a gather through the inverse
-permutation, made in the forward, in place of the scatter; identical) and
-`fwd_records` (identical either way here, see `composite_compact`).
 """
 
 from __future__ import annotations
@@ -681,78 +674,11 @@ def stack_records(rows: torch.Tensor) -> torch.Tensor:
     return torch.cat(parts, dim=0).contiguous()
 
 
-# --------------------------------------------------------------------------
-# bf16 payload packing (opt-in; RODYGS_BF16_RECORDS=1)
-#
-# Rows whose numerics tolerate an 8-bit mantissa (opacity, rgb, normal, and
-# their gradient rows on the unsort) are rounded to bf16 (round to nearest
-# even) and packed two to an int32 row (hi << 16 | lo); geometry rows and
-# depth keep their float32 bits. 10 rows become 8, 13 become 10. The image
-# moves by ~2e-3, so it is not the default.
-# --------------------------------------------------------------------------
-
-_BF16_KEEP_ROWS = (0, 1, 2, 3, 4, 9)  # mx, my, ca, cb, cc, depth stay f32
-
-
-def _bf16_pairs(n_rows: int):
-    """(hi, lo) record-row pairs packed per int32 row; -1 = empty half."""
-    pairs = [(5, 6), (7, 8)]              # (op, r), (g, b)
-    if n_rows == NUM_REC_ROWS:
-        pairs += [(10, 11), (12, -1)]     # (nx, ny), (nz, -)
-    return tuple(pairs)
-
-
-def bf16_payload_rows(n_rows: int) -> int:
-    return len(_BF16_KEEP_ROWS) + len(_bf16_pairs(n_rows))
-
-
-def _bf16_bits(x: torch.Tensor) -> torch.Tensor:
-    """f32 [C] -> i64 holding the rounded bf16 bit pattern in the low 16."""
-    return x.to(torch.bfloat16).view(torch.int16).to(torch.int64) & 0xFFFF
-
-
-def _bits_bf16(bits: torch.Tensor) -> torch.Tensor:
-    """int (low 16 bits = a bf16 pattern) -> f32."""
-    low = (bits.to(torch.int64) & 0xFFFF).to(torch.int32)
-    low = torch.where(low >= 1 << 15, low - (1 << 16), low).to(torch.int16)
-    return low.view(torch.bfloat16).to(torch.float32)
-
-
-def pack_bf16_payload(rec: torch.Tensor) -> torch.Tensor:
-    """[n_rows, C] f32 record (or gradient) rows -> [R, C] i32 payload,
-    R = bf16_payload_rows(n_rows)."""
-    n_rows, c = rec.shape
-    rows = [rec[i].contiguous().view(torch.int32) for i in _BF16_KEEP_ROWS]
-    for a, b in _bf16_pairs(n_rows):
-        lo = (_bf16_bits(rec[b]) if b >= 0
-              else torch.zeros((c,), dtype=torch.int64, device=rec.device))
-        word = (_bf16_bits(rec[a]) << 16) | lo
-        rows.append(torch.where(word >= 1 << 31, word - (1 << 32),
-                                word).to(torch.int32))
-    return torch.stack(rows)
-
-
-def unpack_bf16_payload(packed: torch.Tensor, n_rows: int) -> torch.Tensor:
-    """Inverse of pack_bf16_payload: [R, C] i32 -> [n_rows, C] f32 (the bf16
-    rows carry the rounded values)."""
-    out = [None] * n_rows
-    for r, i in enumerate(_BF16_KEEP_ROWS):
-        out[i] = packed[r].contiguous().view(torch.float32)
-    base = len(_BF16_KEEP_ROWS)
-    for j, (a, b) in enumerate(_bf16_pairs(n_rows)):
-        p = packed[base + j]
-        out[a] = _bits_bf16(p >> 16)
-        if b >= 0:
-            out[b] = _bits_bf16(p)
-    return torch.stack(out)
-
-
 class _CompositeCompact(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, table, bases, f_kept, tile_starts, tile_counts,
-                tile_id_offset, tiles_x, tiles_y, include_normal, bwd_unsort,
-                bf16_payload, bands):
+                tile_id_offset, tiles_x, tiles_y, include_normal, bands):
         from .tile_kernel import rasterize_fwd_impl
 
         db = depth_key_bits(tiles_x, tiles_y)
@@ -765,16 +691,8 @@ class _CompositeCompact(torch.autograd.Function):
         for tab, bs, fk in zip(tables, bases_b, f_kept_b):
             with span("expand"):
                 key, rec = expand_fragments(tab, bs, fk, tiles_x, db, n_rows)
-            payload = pack_bf16_payload(rec) if bf16_payload else rec
             with span("fragment_sort", device=True):
-                perm, rows = sort_fragments(key, payload)
-            if bf16_payload:
-                rows = unpack_bf16_payload(rows, n_rows)
-            if bwd_unsort == "gather":
-                # inv[perm[i]] = i: the unsort becomes a gather
-                inv = torch.empty_like(perm)
-                inv[perm] = torch.arange(perm.shape[0], device=perm.device)
-                perm = inv
+                perm, rows = sort_fragments(key, rec)
             rows_parts.append(rows)
             unsorts.append(perm)
         # band tile ids ascend with b: the concatenation is the sorted order
@@ -788,8 +706,6 @@ class _CompositeCompact(torch.autograd.Function):
                               out, *unsorts)
         ctx.tiles_x = tiles_x
         ctx.n_rows = n_rows
-        ctx.bwd_unsort = bwd_unsort
-        ctx.bf16_payload = bf16_payload
         ctx.banded = banded
         return out
 
@@ -812,29 +728,23 @@ class _CompositeCompact(torch.autograd.Function):
         d_tables = []
         for b, (tab, bs, fk) in enumerate(zip(tables, bases_b, f_kept_b)):
             d_rec = d_records[:n_rows, b * cap_b:(b + 1) * cap_b]
-            d_payload = pack_bf16_payload(d_rec) if ctx.bf16_payload else d_rec
             with span("fragment_unsort", device=True):
-                if ctx.bwd_unsort == "gather":
-                    d_presort = d_payload[:, unsorts[b]]
-                else:
-                    # the exact inverse-permutation scatter
-                    d_presort = torch.empty_like(d_payload)
-                    d_presort[:, unsorts[b]] = d_payload
-            if ctx.bf16_payload:
-                d_presort = unpack_bf16_payload(d_presort, n_rows)
+                # the exact inverse-permutation scatter (what the JAX
+                # package's second sort on the presort index computes)
+                d_presort = torch.empty_like(d_rec)
+                d_presort[:, unsorts[b]] = d_rec
             with span("segsum"):
                 d_rows = segment_sum_rows(d_presort, tab, bs, fk)
             d_tables.append(torch.cat(
                 [d_rows, d_rows.new_zeros((tab.shape[0] - n_rows,
                                            d_rows.shape[1]))], dim=0))
         d_table = torch.stack(d_tables) if ctx.banded else d_tables[0]
-        return (d_table,) + (None,) * 11
+        return (d_table,) + (None,) * 9
 
 
 def composite_compact(table, bases, f_kept, tile_starts, tile_counts,
                       tile_id_offset, tiles_x: int, tiles_y: int,
-                      include_normal: bool = True, bwd_unsort: str = "sort",
-                      bf16_payload: bool = False, fwd_records: str = "sort",
+                      include_normal: bool = True,
                       bands: int = 1) -> torch.Tensor:
     """Differentiable fragment compositing over the compact index structure.
 
@@ -843,30 +753,14 @@ def composite_compact(table, bases, f_kept, tile_starts, tile_counts,
     include_normal=False keeps the 3 normal rows out of the sort and the
     unsort (composited normal planes are 0, their table gradient rows 0).
 
-    bwd_unsort: "sort" (default) returns the gradient rows to presort order
-    by the inverse-permutation scatter (what JAX's second sort on the
-    presort index computes); "gather" makes the inverse permutation in the
-    forward and gathers by it. Identical results.
-
-    bf16_payload=True rounds the opacity / rgb / normal rows and their
-    gradient rows to bf16 through the sort and the unsort (pack_bf16_payload):
-    ~2e-3 off the float32 image, opt-in.
-
-    fwd_records: how the record rows reach sorted order in the JAX package,
-    riding its multi-operand sort ("sort") or gathered after it
-    ("gather"). torch's sort carries no payload, so both are the gather by
-    the sort's permutation here: identical by construction.
-
     bands > 1 takes the banded structure of `build_binning(bands=B)`: table
     [B, R, Nw], bases [B, Cb/FCHUNK], f_kept [B]. Each band expands, sorts,
     unsorts and segment-sums on its own; the table's cotangent is
     [B, R, Nw], which the caller's stack of per-band tables sums.
     """
-    del fwd_records
     if table.dim() != (3 if bands > 1 else 2):
         raise ValueError(f"bands={bands} with a table of shape "
                          f"{tuple(table.shape)}")
     return _CompositeCompact.apply(table, bases, f_kept, tile_starts,
                                    tile_counts, tile_id_offset, tiles_x,
-                                   tiles_y, include_normal, bwd_unsort,
-                                   bf16_payload, bands)
+                                   tiles_y, include_normal, bands)

@@ -9,8 +9,8 @@ Two binning backends (`binning_mode`):
   * "compact" (default): params -> preprocess (torch autograd) ->
     composite_compact (autograd.Function over the expand / tile-forward
     kernels, backward through the tile-backward and segsum kernels) ->
-    image. Options: the bf16 payload, `fwd_records` / `bwd_unsort`, sort
-    bands, the tight-rect modes.
+    image. Options, per call or chosen by the code: sort bands and the
+    tight-rect modes.
   * "legacy": the broadcast-tier binning (render/binning.py), a records
     gather `index_select` whose backward is the scatter-add `index_add_`,
     and `tile_kernel.rasterize_tiles` (the tile-forward / tile-backward
@@ -25,15 +25,10 @@ the offset divided by 0.5*[W, H] where this multiplies, so its statistic is
 (0.5*[W, H])^2 smaller (ROADMAP, faults found in the reference).
 
 Sort bands come from a `(profile, bands)` fragment profile (the trainers'
-pollers and the evaluator choose them) or from `sort_bands`, which wins;
-`RODYGS_SORT_BANDS` forces a count for the whole process. The count is
-clamped to [1, tiles_y] (the JAX package raises on 0).
-
-Process-level knobs, read once at import as the JAX module reads them:
-RODYGS_BWD_UNSORT (sort | gather), RODYGS_BF16_RECORDS (1 = bf16 payload
-by default; `bf16_records=` overrides per call), RODYGS_FWD_RECORDS (sort |
-gather), RODYGS_TIGHT_RECT (auto | 0 | 1 | rows; anything else raises) and
-RODYGS_SORT_BANDS (auto | an integer).
+pollers and the evaluator choose them) or from `sort_bands`, which wins.
+The count is clamped to [1, tiles_y], as the JAX package clamps
+`sort_bands`. The tight-rect mode is `tight_rect`, or by default row spans
+from 4,096 tiles up and the alpha-AABB below.
 
 Sharding, inside a multi-process mesh (parallel/mesh.py); each argument
 takes a mesh `Axis`, the composite `mesh.axis(("gauss", "tile"))`
@@ -53,8 +48,6 @@ included:
 
 from __future__ import annotations
 
-import os
-
 import torch
 
 from ..parallel.collectives import all_gather
@@ -68,43 +61,18 @@ from .preprocess import Splats2D, preprocess
 from .tile_kernel import (rasterize_tiles, rasterize_tiles_ranged,
                           tiles_to_image)
 
-# backward unsort of the compact path (composite_compact): "sort" or "gather"
-_BWD_UNSORT = os.environ.get("RODYGS_BWD_UNSORT", "sort")
-# the bf16 fragment payload by default (compact.pack_bf16_payload)
-_BF16_RECORDS = os.environ.get("RODYGS_BF16_RECORDS", "0") == "1"
-# how record rows reach sorted order (composite_compact): "sort" or "gather"
-_FWD_RECORDS = os.environ.get("RODYGS_FWD_RECORDS", "sort")
-# tight fragment rects: "auto" (rows when the tile grid is large, else the
-# alpha-AABB), "0" (the reference's circle rects), "1" (alpha-AABB), "rows"
-_TIGHT_ENV = os.environ.get("RODYGS_TIGHT_RECT", "auto")
-if _TIGHT_ENV not in ("0", "1", "rows", "auto"):
-    raise ValueError(
-        f"RODYGS_TIGHT_RECT={_TIGHT_ENV!r}: expected '0', '1', 'rows', or "
-        "'auto' (a typo here would silently mis-label an A/B measurement)")
 _ROWS_AUTO_TILES = 4096
-# sort bands for the whole process: "auto" defers to the profile and
-# sort_bands, an integer forces the count
-_BANDS_ENV = os.environ.get("RODYGS_SORT_BANDS", "auto")
-if _BANDS_ENV != "auto" and not _BANDS_ENV.isdigit():
-    raise ValueError(
-        f"RODYGS_SORT_BANDS={_BANDS_ENV!r}: expected 'auto' or an integer")
 
 
 def _default_tight(num_tiles: int):
-    if _TIGHT_ENV == "auto":
-        return "rows" if num_tiles >= _ROWS_AUTO_TILES else True
-    return "rows" if _TIGHT_ENV == "rows" else (_TIGHT_ENV != "0")
+    """Row spans on large tile grids, else the alpha-AABB."""
+    return "rows" if num_tiles >= _ROWS_AUTO_TILES else True
 
 
 def _band_count(fragment_profile, sort_bands, tiles_y: int) -> int:
-    """The forced count, else sort_bands, else the profile's; in [1,
-    tiles_y]."""
-    if _BANDS_ENV != "auto":
-        bands = int(_BANDS_ENV)
-    elif sort_bands is not None:
-        bands = sort_bands
-    else:
-        bands = split_profile(fragment_profile)[1]
+    """sort_bands, else the profile's; in [1, tiles_y]."""
+    bands = (split_profile(fragment_profile)[1] if sort_bands is None
+             else sort_bands)
     return max(1, min(bands, tiles_y))
 
 
@@ -190,7 +158,6 @@ def render(
     fragment_profile: str | int = "lean",
     binning_mode: str = "compact",
     include_normal: bool = True,
-    bf16_records: bool | None = None,
     tight_rect: bool | str | None = None,
     pose_grad_only: bool = False,
     sort_bands: int | None = None,
@@ -204,17 +171,13 @@ def render(
     capacity (compact.fragment_capacity; legacy: binning.FRAGMENT_PROFILES)
     and, as a (profile, bands) tuple, the sort bands; `sort_bands`
     overrides the profile's band count; `tight_rect` overrides the binning
-    default; `bf16_records` the process's bf16 payload default.
-    `max_fragments` is accepted and not used, as in the JAX package: both
-    binnings size their capacity from N and the profile. The compact-path
-    options do not apply to the legacy path. `tile_axis` / `gauss_axis`:
-    see the module docstring.
+    default. `max_fragments` is accepted and not used, as in the JAX
+    package: both binnings size their capacity from N and the profile. The
+    compact-path options do not apply to the legacy path. `tile_axis` /
+    `gauss_axis`: see the module docstring.
     """
     if means3d.is_cuda:
         strict_fp32()
-    if max_fragments is None:
-        max_fragments = default_fragment_budget(
-            image_width, image_height, means3d.shape[0])
     tiles_x, tiles_y = tile_grid(image_width, image_height)
     with span("preprocess"):
         splats = preprocess(
@@ -259,7 +222,6 @@ def render(
                                  for b in range(bands)])
         else:
             table = build_table(rec13, cb.aux_rows)
-        bf16 = _BF16_RECORDS if bf16_records is None else bf16_records
         if tile_axis is None:
             starts, counts = cb.tile_starts, cb.tile_counts
             offset = torch.zeros((1,), dtype=torch.int32,
@@ -270,12 +232,15 @@ def render(
                 tile_axis.index, num_tiles)
         tile_out = composite_compact(
             table, cb.bases, cb.f_kept, starts, counts, offset, tiles_x,
-            tiles_y, include_normal, _BWD_UNSORT, bf16, _FWD_RECORDS, bands)
+            tiles_y, include_normal, bands)
         if tile_axis is not None:
             tile_out = _gather_tiles(tile_out, tile_axis, num_tiles)
         num_fragments, overflow, dropped = (cb.num_fragments, cb.overflow,
                                             cb.dropped)
     elif binning_mode == "legacy":
+        if max_fragments is None:
+            max_fragments = default_fragment_budget(
+                image_width, image_height, means3d.shape[0])
         binning = bin_splats(
             splats.mean2d.detach(), splats.depth.detach(), splats.radius,
             splats.visible, tiles_x, tiles_y, max_fragments,

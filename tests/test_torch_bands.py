@@ -78,7 +78,8 @@ def test_band_count_clamped_to_tile_rows(scene_splats):
     _assert_binning_equal(jb, tb)
 
 
-def _render_and_grads(scene, bands=None, profile="lean", sh_degree=2):
+def _render_and_grads(scene, bands=None, profile="lean", sh_degree=2,
+                      include_normal=True):
     """Port render with gradients of a seeded loss."""
     means, scales, quats, opac, shs, cam = scene
     target = np.random.default_rng(3).uniform(0, 1, (H, W, 3)).astype(np.float32)
@@ -86,7 +87,8 @@ def _render_and_grads(scene, bands=None, profile="lean", sh_degree=2):
                                                   shs)]
     tcam = tcam_from(cam, requires_grad=True)
     out = trender(leaves[0], leaves[4], leaves[3], leaves[1], leaves[2], tcam,
-                  sh_degree, W, H, fragment_profile=profile, sort_bands=bands)
+                  sh_degree, W, H, fragment_profile=profile, sort_bands=bands,
+                  include_normal=include_normal)
     loss = (torch.mean((out["rendered_image"] - torch.tensor(target)) ** 2)
             + 0.1 * torch.mean(out["rendered_depth"]))
     loss.backward()
@@ -95,15 +97,19 @@ def _render_and_grads(scene, bands=None, profile="lean", sh_degree=2):
     return out, grads, target
 
 
+@pytest.mark.parametrize("include_normal", [True, False])
 @pytest.mark.parametrize("bands", [2, 3])
-def test_banded_render_matches_jax(bands):
+def test_banded_render_matches_jax(bands, include_normal):
+    """Without the normal rows the banded backward takes each band's 10
+    core gradient rows."""
     scene = make_scene(n=120, sh_extra=True)
     means, scales, quats, opac, shs, cam = scene
-    out, grads, target = _render_and_grads(scene, bands=bands)
+    out, grads, target = _render_and_grads(scene, bands=bands,
+                                           include_normal=include_normal)
 
     def jloss(means, scales, quats, opac, shs, cam):
         o = jrender(means, shs, opac, scales, quats, cam, 2, W, H,
-                    sort_bands=bands)
+                    sort_bands=bands, include_normal=include_normal)
         return (jnp.mean((o["rendered_image"] - target) ** 2)
                 + 0.1 * jnp.mean(o["rendered_depth"])), o
 
@@ -154,3 +160,12 @@ def test_profile_tuple_reaches_the_banded_path(monkeypatch):
     for a, b in zip(gp, ga):
         np.testing.assert_array_equal(a, b)
     assert forced["rendered_image"].shape == (H, W, 3)
+
+
+@pytest.mark.parametrize("shape,bands", [((2, 24, 512), 1), ((24, 512), 2)])
+def test_table_rank_must_match_bands(shape, bands):
+    """A banded structure takes a [B, R, Nw] table, an unbanded one [R,
+    Nw]: anything else raises before the kernels run."""
+    with pytest.raises(ValueError, match=f"bands={bands}"):
+        tc.composite_compact(torch.zeros(shape), None, None, None, None,
+                             None, 4, 3, bands=bands)

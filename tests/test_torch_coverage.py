@@ -17,6 +17,9 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 JAX_PKG, PORT_PKG = REPO / "rodygs_tpu", REPO / "rodygs_tpu_torch"
+_TPU_SORT_VARIANT = ("a variant that only cuts the TPU's sort cost, with no "
+                     "use on the card: the port renders one compositing "
+                     "path (scatter unsort, float32 record rows)")
 
 EXEMPT = {
     ("utils/platform.py", "respect_jax_platforms_env"):
@@ -26,6 +29,9 @@ EXEMPT = {
         "JAX's compilation cache; the port compiles nothing per process but "
         "its CUDA kernels, which rodygs_tpu_torch/_build/ keeps across "
         "processes",
+    ("render/compact.py", "pack_bf16_payload"): _TPU_SORT_VARIANT,
+    ("render/compact.py", "unpack_bf16_payload"): _TPU_SORT_VARIANT,
+    ("render/compact.py", "bf16_payload_rows"): _TPU_SORT_VARIANT,
 }
 _SEEDS = ("the port draws from seeded torch.Generators: a JAX key or rng "
           "argument has no counterpart")
@@ -61,6 +67,10 @@ SIGNATURE_EXEMPT = {
         {"padded_records": "the CUDA kernel takes the records unpadded"},
     ("render/tile_kernel.py", "rasterize_bwd_impl"):
         {"padded_records": "the CUDA kernel takes the records unpadded"},
+    ("render/rasterize.py", "render"): {"bf16_records": _TPU_SORT_VARIANT},
+    ("render/compact.py", "composite_compact"): {
+        "bwd_unsort": _TPU_SORT_VARIANT, "bf16_payload": _TPU_SORT_VARIANT,
+        "fwd_records": _TPU_SORT_VARIANT},
 }
 MODULES = sorted(str(p.relative_to(JAX_PKG)) for p in JAX_PKG.rglob("*.py"))
 

@@ -1,6 +1,6 @@
 """Multi-device parity of the port with the JAX package on the CPU: the
-sharded render (tile, gauss and gauss x tile splits, the render knobs and
-the legacy path inside a tile split), the mesh and `shard_interleave`.
+sharded render (tile, gauss and gauss x tile splits, the render options
+and the legacy path inside a tile split), the mesh and `shard_interleave`.
 
 The JAX side runs its `shard_map` on k of the 8 virtual CPU devices
 (tests/conftest.py) in this process; the port's side runs in a spawned
@@ -153,7 +153,7 @@ def spawn(jobs):
 
 # --------------------------------------------------------------------------
 # four ranks: the tile split (1 x 1 x 4: 15 tiles in 4 blocks, the last
-# padded) with every knob, the gauss split (1 x 4 x 1), both (1 x 2 x 2)
+# padded) with every render option, the gauss split (1 x 4 x 1), both (1 x 2 x 2)
 # --------------------------------------------------------------------------
 
 TILE4 = {"data": 1, "gauss": 1, "tile": 4}
@@ -161,8 +161,7 @@ GAUSS4 = {"data": 1, "gauss": 4, "tile": 1}
 GAUSS_TILE = {"data": 1, "gauss": 2, "tile": 2}
 KNOB_CASES = [
     ("plain", {}),
-    ("gather", {"knobs": {"_FWD_RECORDS": "gather", "_BWD_UNSORT": "gather"}}),
-    ("bf16", {"bf16_records": True}),
+    ("no_normal", {"include_normal": False}),
     ("tight_aabb", {"tight_rect": True}),
     ("tight_rows", {"tight_rect": "rows"}),
     ("loose", {"tight_rect": False}),
@@ -189,10 +188,6 @@ def tile4(four_ranks):
     return four_ranks[0]
 
 
-def _single_kw(kw):
-    return {k: v for k, v in kw.items() if k != "knobs"}
-
-
 def test_tile_split_render_matches_jax_and_single(scene, tile4):
     """The tile-split planes equal the port's single-process render and lie
     within the image / depth bars of the JAX package's tile-split render;
@@ -217,20 +212,16 @@ def test_tile_split_render_matches_jax_and_single(scene, tile4):
 @pytest.mark.parametrize("name,kw", KNOB_CASES[1:],
                          ids=[c[0] for c in KNOB_CASES[1:]])
 def test_tile_split_knobs(scene, tile4, name, kw):
-    """Every render knob inside the tile split: the gather records and
-    unsort, the tight modes, the loose circle rects, sort bands and the
-    legacy path equal the single-process render of the same setting; bf16
-    lies within its bar of the float32 planes."""
-    single, g_single = port_single(scene, **_single_kw(kw))
+    """Every render option inside the tile split: no normal rows, the
+    tight modes, the loose circle rects, sort bands and the legacy path
+    equal the single-process render of the same setting."""
+    single, g_single = port_single(scene, **kw)
     for r in tile4:
         got = r["cases"][name]
         np.testing.assert_array_equal(got["image"], single["rendered_image"])
         assert_scaled(g_single[0], got["g_xyz"], name)
         assert_scaled(g_single[1], got["g_opacity"], name)
-        if name == "bf16":
-            plain = r["cases"]["plain"]["image"]
-            assert 0 < np.abs(got["image"] - plain).max() < 1e-2
-        if name in ("gather", "bands"):
+        if name in ("no_normal", "bands"):
             np.testing.assert_array_equal(got["image"],
                                           r["cases"]["plain"]["image"])
 

@@ -1,13 +1,13 @@
-"""The render variants, the dense oracle and the row-sparse camera Adam:
-the port against the JAX package on the CPU.
+"""The legacy render, the render's tight-rect and band rules, the dense
+oracle and the row-sparse camera Adam: the port against the JAX package on
+the CPU.
 
 Same numpy-seeded scenes (tests/test_render.py, 64x48) go through both
 packages; the JAX side runs its Pallas kernels in interpret mode, as its
 own tests do. Tolerances are the JAX suite's: image/alpha 2e-5,
-depth/normal 2e-4, gradients divided by their max 5e-4; the bf16 payload
-1e-2 on the image and 3e-2 on the gradients against float32
-(tests/test_render.py). Integer index structures, the legacy path against
-the compact one (circle rects), the unsort / record strategies and the
+depth/normal 2e-4, gradients divided by their max 5e-4. Integer index
+structures, the legacy path against the compact one (circle rects), renders
+that the environment or a clamped band count must not change and the
 sparse Adam's trajectory must be equal exactly.
 """
 
@@ -49,7 +49,6 @@ from test_torch_render import T, assert_scaled, tcam_from
 from test_torch_train import _bench_like_setup
 
 IMG_TOL, DEPTH_TOL = 2e-5, 2e-4
-BF16_IMG_TOL, BF16_GRAD_TOL = 1e-2, 3e-2
 OUT_KEYS = ("rendered_image", "rendered_depth", "rendered_alpha",
             "rendered_normal")
 REPO = Path(__file__).resolve().parents[1]
@@ -230,164 +229,109 @@ def test_legacy_order_finds_depth_key_ties():
 
 
 # --------------------------------------------------------------------------
-# compact variants: bf16 payload, unsort and record strategies
+# the render's rules: no process knobs, the tight-rect default, sort bands
 # --------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("n_rows", [10, 13])
-def test_bf16_payload_bits_match(n_rows):
-    rec = np.random.default_rng(3).normal(0, 10.0, size=(n_rows, 256)) \
-        .astype(np.float32)
-    want = np.asarray(jc.pack_bf16_payload(jnp.asarray(rec)))
-    got = tc.pack_bf16_payload(T(rec))
-    assert got.dtype == torch.int32
-    assert tc.bf16_payload_rows(n_rows) == jc.bf16_payload_rows(n_rows)
-    np.testing.assert_array_equal(got.numpy(), want)
-    np.testing.assert_array_equal(
-        tc.unpack_bf16_payload(got, n_rows).numpy(),
-        np.asarray(jc.unpack_bf16_payload(jnp.asarray(want), n_rows)))
-
-
-@pytest.fixture(scope="module")
-def f32_render(scene250):
-    """The port's float32 compact render and gradients, both normal
-    settings."""
-    return {inc: _port_render_grads(scene250, include_normal=inc,
-                                    **RENDER_KW)
-            for inc in (True, False)}
-
-
-@pytest.fixture(scope="module")
-def jax_bf16(scene250):
-    """The JAX package's bf16 render and gradients (unsort "sort", normals
-    on): its unsort strategies are identical, and without the normal rows
-    every other output and gradient keeps its bits (tests/test_render.py)."""
-    return _jax_render_grads(scene250, bf16_records=True, **RENDER_KW)
-
-
-@pytest.mark.parametrize("bwd_unsort,include_normal",
-                         [("sort", True), ("gather", True), ("sort", False)])
-def test_bf16_render(scene250, f32_render, jax_bf16, monkeypatch, bwd_unsort,
-                     include_normal):
-    monkeypatch.setattr(tr, "_BWD_UNSORT", bwd_unsort)
-    kw = dict(RENDER_KW, include_normal=include_normal, bf16_records=True)
-    tout, tgrads = _port_render_grads(scene250, **kw)
-    jout, jgrads = jax_bf16
-    _assert_images(tout, jout, OUT_KEYS if include_normal else OUT_KEYS[:3])
-    for i, (a, b) in enumerate(zip(jgrads, tgrads)):
-        assert_scaled(a, b.numpy(), name=f"grad {i}")
-    fout, fgrads = f32_render[include_normal]
-    assert float((tout["rendered_image"] - fout["rendered_image"]).abs()
-                 .max()) < BF16_IMG_TOL
-    for a, b in zip(tgrads, fgrads):
-        scale = max(float(b.abs().max()), 1e-6)
-        assert float((a - b).abs().max()) / scale < BF16_GRAD_TOL
-    assert float(tgrads[0].abs().max()) > 0
-
-
-@pytest.mark.parametrize("bwd_unsort,fwd_records,bf16",
-                         [("gather", "sort", False), ("sort", "gather", False),
-                          ("gather", "gather", True)])
-def test_unsort_and_record_strategies_identical(scene250, f32_render,
-                                                monkeypatch, bwd_unsort,
-                                                fwd_records, bf16):
-    monkeypatch.setattr(tr, "_BWD_UNSORT", bwd_unsort)
-    monkeypatch.setattr(tr, "_FWD_RECORDS", fwd_records)
-    out, grads = _port_render_grads(scene250, bf16_records=bf16, **RENDER_KW)
-    if bf16:
-        monkeypatch.setattr(tr, "_BWD_UNSORT", "sort")
-        monkeypatch.setattr(tr, "_FWD_RECORDS", "sort")
-        ref_out, ref_grads = _port_render_grads(scene250, bf16_records=True,
-                                                **RENDER_KW)
-    else:
-        ref_out, ref_grads = f32_render[True]
-    for k in OUT_KEYS:
-        assert torch.equal(out[k], ref_out[k]), k
-    for i, (a, b) in enumerate(zip(grads, ref_grads)):
-        assert torch.equal(a, b), f"grad {i}"
-
-
-# --------------------------------------------------------------------------
-# the RODYGS_* knobs
-# --------------------------------------------------------------------------
-
-
-KNOB_CASES = [
-    ({}, ["sort", False, "sort", "auto", "auto"]),
-    ({"RODYGS_BWD_UNSORT": "gather", "RODYGS_BF16_RECORDS": "1",
-      "RODYGS_FWD_RECORDS": "gather", "RODYGS_TIGHT_RECT": "rows",
-      "RODYGS_SORT_BANDS": "0"}, ["gather", True, "gather", "rows", "0"]),
-    ({"RODYGS_TIGHT_RECT": "0"}, ["sort", False, "sort", "0", "auto"]),
-    ({"RODYGS_TIGHT_RECT": "row"}, "RODYGS_TIGHT_RECT='row'"),
-    ({"RODYGS_SORT_BANDS": "two"}, "RODYGS_SORT_BANDS='two'"),
-]
-_KNOB_SCRIPT = """
+# environment variables the render once read at import, each set to a value
+# that changed its output then (or, RODYGS_TIGHT_RECT=row, raised)
+OLD_KNOBS = {"RODYGS_BWD_UNSORT": "gather", "RODYGS_BF16_RECORDS": "1",
+             "RODYGS_FWD_RECORDS": "gather", "RODYGS_TIGHT_RECT": "row",
+             "RODYGS_SORT_BANDS": "2"}
+_CLEAN_ENV_SCRIPT = """
 import importlib, json, os, sys
+import numpy as np
+import torch
+torch.set_num_threads(1)
 import rodygs_tpu_torch.render.rasterize as R
-results = []
-for env in json.loads(sys.argv[1]):
-    for k in [k for k in os.environ if k.startswith("RODYGS_")]:
-        del os.environ[k]
-    os.environ.update(env)
-    try:
-        importlib.reload(R)
-        results.append([R._BWD_UNSORT, R._BF16_RECORDS, R._FWD_RECORDS,
-                        R._TIGHT_ENV, R._BANDS_ENV])
-    except ValueError as e:
-        results.append(str(e))
-print(json.dumps(results))
+from rodygs_tpu_torch.render.camera import Camera
+scene = np.load(sys.argv[1])
+KEYS = ("rendered_image", "rendered_depth", "rendered_alpha",
+        "rendered_normal", "num_fragments", "dropped")
+NAMES = ("means", "scales", "quats", "opac", "shs")
+
+def run():
+    leaves = [torch.tensor(scene[k]).requires_grad_(True) for k in NAMES]
+    m, s, q, o, sh = leaves
+    pose = [torch.tensor(scene[k]).requires_grad_(True) for k in ("q", "t")]
+    cam = Camera(*pose, *[torch.tensor(scene[k])
+                          for k in ("fovx", "fovy", "time")])
+    out = R.render(m, sh, o, s, q, cam, 3, int(scene["W"]), int(scene["H"]))
+    (((out["rendered_image"] - 0.3) ** 2).mean()
+     + 0.1 * out["rendered_depth"].mean()
+     + 0.05 * out["rendered_alpha"].mean()).backward()
+    got = {k: out[k].detach() for k in KEYS}
+    got.update({n: x.grad for n, x in zip(NAMES + ("q", "t"), leaves + pose)})
+    return got
+
+knobbed = run()
+for k in [k for k in os.environ if k.startswith("RODYGS_")]:
+    del os.environ[k]
+importlib.reload(R)
+clean = run()
+print(json.dumps([k for k in clean if not torch.equal(knobbed[k], clean[k])]))
 """
 
 
-def test_knobs_read_at_import():
-    """Each case a fresh import of the port's rasterize under its
-    environment, in one subprocess: the module globals, or the import's
-    ValueError."""
+def test_render_reads_no_process_knobs(scene250, tmp_path):
+    """One subprocess renders the scene, forward and backward, with the old
+    RODYGS_* render variables set, then again after a re-import in a clean
+    environment: every output and gradient keeps its bits."""
+    means, scales, quats, opac, shs, cam = scene250
+    np.savez(tmp_path / "scene.npz", means=means, scales=scales, quats=quats,
+             opac=opac, shs=shs, q=cam.q_c2w, t=cam.t_c2w, fovx=cam.fovx,
+             fovy=cam.fovy, time=cam.time, W=W, H=H)
     env = {k: v for k, v in os.environ.items() if not k.startswith("RODYGS_")}
-    env["PYTHONPATH"] = str(REPO)
+    env.update(OLD_KNOBS, PYTHONPATH=str(REPO))
     res = subprocess.run(
-        [sys.executable, "-c", _KNOB_SCRIPT,
-         json.dumps([case for case, _ in KNOB_CASES])],
+        [sys.executable, "-c", _CLEAN_ENV_SCRIPT, str(tmp_path / "scene.npz")],
         env=env, cwd=REPO, capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    got = json.loads(res.stdout.strip().splitlines()[-1])
-    for (case, want), result in zip(KNOB_CASES, got):
-        if isinstance(want, str):
-            assert isinstance(result, str) and want in result, (case, result)
-        else:
-            assert result == want, case
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
 
 
-@pytest.mark.parametrize("env", ["auto", "0", "1", "rows"])
-def test_tight_rect_knob_decides_as_jax(monkeypatch, env):
-    monkeypatch.setattr(jr, "_TIGHT_ENV", env)
-    monkeypatch.setattr(tr, "_TIGHT_ENV", env)
-    for tiles in (12, 1024, 4095, 4096, 8160):
-        assert tr._default_tight(tiles) == jr._default_tight(tiles), tiles
+@pytest.mark.parametrize("tiles", [12, 1024, 4095, 4096, 8160])
+def test_tight_default_decides_as_jax(monkeypatch, tiles):
+    """Row spans from 4,096 tiles up, the alpha-AABB below: the JAX
+    package's "auto" rule."""
+    monkeypatch.setattr(jr, "_TIGHT_ENV", "auto")
+    assert tr._default_tight(tiles) == jr._default_tight(tiles) \
+        == ("rows" if tiles >= 4096 else True)
 
 
-@pytest.mark.parametrize("forced,sort_bands,profile,want", [
-    ("auto", None, ("lean", 2), 2), ("auto", 0, "lean", 1),
-    ("auto", 7, "lean", 3), ("2", 1, ("lean", 3), 2), ("0", None, "lean", 1),
-    ("9", None, "lean", 3)])
-def test_band_count_clamped(monkeypatch, forced, sort_bands, profile, want):
-    """A forced count wins over sort_bands and the profile; every count
-    lands in [1, tiles_y] (3 at 64x48)."""
-    monkeypatch.setattr(tr, "_BANDS_ENV", forced)
+@pytest.mark.parametrize("sort_bands,profile,want", [
+    (None, ("lean", 2), 2), (1, ("lean", 3), 1), (0, "lean", 1),
+    (7, "lean", 3), (None, ("lean", 0), 1), (None, ("lean", 9), 3)])
+def test_band_count_clamped(sort_bands, profile, want):
+    """sort_bands wins over the profile's count; either lands in [1,
+    tiles_y] (3 at 64x48)."""
     assert tr._band_count(profile, sort_bands, 3) == want
 
 
-def test_forced_zero_bands_renders_one_band(scene250, monkeypatch):
-    """RODYGS_SORT_BANDS=0 raises IndexError in the JAX package; the port
-    clamps it to one band."""
+def test_forced_zero_bands_renders_one_band(scene250):
+    """sort_bands=0 renders one band, as the JAX package's render does,
+    whatever the profile's count."""
     means, scales, quats, opac, shs, cam = scene250
     args = (T(means), T(shs), T(opac), T(scales), T(quats), tcam_from(cam))
     with torch.no_grad():
         one = tr.render(*args, **RENDER_KW)
-        monkeypatch.setattr(tr, "_BANDS_ENV", "0")
-        zero = tr.render(*args, fragment_profile=("lean", 2), **RENDER_KW)
+        zero = tr.render(*args, fragment_profile=("lean", 2), sort_bands=0,
+                         **RENDER_KW)
     for k in OUT_KEYS:
         assert torch.equal(zero[k], one[k]), k
+
+
+def test_bands_past_tile_rows_render_as_tile_rows(scene250):
+    """sort_bands above tiles_y is clamped to tiles_y: the same outputs and
+    gradients, bit for bit."""
+    ty = -(-H // 16)
+    out, grads = _port_render_grads(scene250, sort_bands=ty, **RENDER_KW)
+    over, over_grads = _port_render_grads(scene250, sort_bands=ty + 4,
+                                          **RENDER_KW)
+    for k in OUT_KEYS:
+        assert torch.equal(over[k], out[k]), k
+    for i, (a, b) in enumerate(zip(over_grads, grads)):
+        assert torch.equal(a, b), f"grad {i}"
 
 
 # --------------------------------------------------------------------------

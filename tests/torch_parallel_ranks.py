@@ -88,37 +88,26 @@ def render_cases(rank: int, jobs: list) -> list:
         cam = make_camera(*scene["camera"], device="cpu")
         res_job = {}
         for name, kw, uses_gauss, grads in cases:
-            kw = dict(kw)
-            knobs = kw.pop("knobs", {})
-            saved = {k: getattr(R, k) for k in knobs}
-            for k, v in knobs.items():
-                setattr(R, k, v)
-            try:
-                g, n = mesh.coords["gauss"], shape["gauss"]
-                block = ((lambda x: S._block(T(x), g, n)) if uses_gauss
-                         else (lambda x: T(x)))
-                xyz = block(scene["xyz"]).requires_grad_(grads)
-                opac = block(scene["opacity"]).requires_grad_(grads)
-                res = R.render(
-                    xyz, block(scene["shs"]), torch.sigmoid(opac[:, 0]),
-                    block(scene["scaling"]), block(scene["rotation"]), cam,
-                    scene["sh_degree"], scene["W"], scene["H"],
-                    alive=block(scene["alive"]), tile_axis=comp,
-                    gauss_axis=mesh.axis("gauss") if uses_gauss else None,
-                    **kw)
-                got = {"image": npy(res["rendered_image"]),
-                       "depth": npy(res["rendered_depth"]),
-                       "alpha": npy(res["rendered_alpha"]),
-                       "radii": npy(res["radii"])}
-                if grads:
-                    loss = ((res["rendered_image"] - T(scene["gt"])) ** 2
-                            ).mean()
-                    g_xyz, g_op = C.psum(list(torch.autograd.grad(
-                        loss / n_comp, [xyz, opac])), mesh.axis("tile"))
-                    got.update(g_xyz=npy(g_xyz), g_opacity=npy(g_op))
-            finally:
-                for k, v in saved.items():
-                    setattr(R, k, v)
+            g, n = mesh.coords["gauss"], shape["gauss"]
+            block = ((lambda x: S._block(T(x), g, n)) if uses_gauss
+                     else (lambda x: T(x)))
+            xyz = block(scene["xyz"]).requires_grad_(grads)
+            opac = block(scene["opacity"]).requires_grad_(grads)
+            res = R.render(
+                xyz, block(scene["shs"]), torch.sigmoid(opac[:, 0]),
+                block(scene["scaling"]), block(scene["rotation"]), cam,
+                scene["sh_degree"], scene["W"], scene["H"],
+                alive=block(scene["alive"]), tile_axis=comp,
+                gauss_axis=mesh.axis("gauss") if uses_gauss else None, **kw)
+            got = {"image": npy(res["rendered_image"]),
+                   "depth": npy(res["rendered_depth"]),
+                   "alpha": npy(res["rendered_alpha"]),
+                   "radii": npy(res["radii"])}
+            if grads:
+                loss = ((res["rendered_image"] - T(scene["gt"])) ** 2).mean()
+                g_xyz, g_op = C.psum(list(torch.autograd.grad(
+                    loss / n_comp, [xyz, opac])), mesh.axis("tile"))
+                got.update(g_xyz=npy(g_xyz), g_opacity=npy(g_op))
             res_job[name] = got
         out.append({"coords": mesh.coords, "cases": res_job})
     return out
